@@ -1,0 +1,210 @@
+"""Batched anchored affine-gap extension (the aligner's inner loop).
+
+Counterpart of ``seeksv_tpu/ops/pallas_sw.py`` (the Pallas kernel and its
+resident-genome entry) and ``seeksv_tpu/ops/jax_kernels.py:sw_extend_batch``.
+
+- ``extend_batch_plain``: the plain PyTorch version on [B, LQ] / [B, LT]
+  code tensors, any device.  It is the exact-prefix-max formulation of
+  the JAX kernels: one target row per step, the row-gap term as an
+  exclusive ``cummax`` over the query axis.
+- ``extend_batch_resident_plain``: the same on nibble-packed queries, with
+  target windows gathered from the nibble-packed genome (reversed for
+  left extensions; positions off the genome or at/after tlen read 4).
+- ``extend_batch_resident``: the wrapper.  On a CUDA tensor it launches
+  the CUDA kernel (csrc/extend.cu, target gather fused into the kernel's
+  loads) and counts the launch; on a CPU tensor it runs the plain version.
+
+Scores: match +1, mismatch -4, ambiguous (code > 3) -1, gap open 6,
+extend 1, z-drop 100.  Outputs per job: max_score, qle/tle (first
+occurrence of the best), gscore/gtle (best score reaching the query end).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MATCH = 1
+MISMATCH = 4
+GAP_OPEN = 6
+GAP_EXT = 1
+AMBIG = -1
+NEG_INF = -0x10000000
+ZDROP = 100
+BIG = 0x7FFFFFFF
+KEYS = ("max_score", "qle", "tle", "gscore", "gtle")
+
+# CUDA launches by direction (left = reversed windows); plain-version
+# calls made for CPU tensors are counted apart
+LAUNCHES = {"extend_left": 0, "extend_right": 0}
+PLAIN_CALLS = {"extend_left": 0, "extend_right": 0}
+
+
+def pack_nibbles(a: np.ndarray) -> np.ndarray:
+    """[B, L] uint8 codes (0..4) -> [B, ceil(L/2)] uint8, host side; the
+    low nibble holds the even position."""
+    B, L = a.shape
+    if L % 2:
+        a = np.concatenate([a, np.full((B, 1), 4, np.uint8)], axis=1)
+    return (a[:, 0::2] | (a[:, 1::2] << 4)).astype(np.uint8)
+
+
+def unpack_nibbles(p: torch.Tensor, L: int) -> torch.Tensor:
+    """[B, ceil(L/2)] uint8 -> [B, L] int32."""
+    lo = (p & 0xF).to(torch.int32)
+    hi = (p >> 4).to(torch.int32)
+    return torch.stack([lo, hi], dim=2).reshape(p.shape[0], -1)[:, :L]
+
+
+def gather_ref_windows(refp: torch.Tensor, n_codes: int, start: torch.Tensor,
+                       tlen: torch.Tensor, LT: int,
+                       reverse: bool) -> torch.Tensor:
+    """[B, LT] int32 target windows from the packed genome: element k is
+    genome position start -/+ k; code 4 off the genome or at k >= tlen."""
+    iota = torch.arange(LT, dtype=torch.int64, device=start.device)[None, :]
+    st = start.to(torch.int64)[:, None]
+    idx = st - iota if reverse else st + iota
+    valid = (iota < tlen.to(torch.int64)[:, None]) & (idx >= 0) \
+        & (idx < n_codes)
+    idx_c = idx.clamp(0, max(n_codes - 1, 0))
+    byte = refp[idx_c >> 1].to(torch.int32)
+    nib = torch.where((idx_c & 1) == 1, byte >> 4, byte & 0xF)
+    return torch.where(valid, nib, 4)
+
+
+def extend_batch_plain(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
+                       tlen: torch.Tensor, h0: torch.Tensor) -> dict:
+    """Plain PyTorch extension: q [B, LQ], t [B, LT] codes, qlen/tlen/h0
+    [B].  Returns a dict of int32 [B] tensors (KEYS).
+
+    Rows stop once no job is active: activity (i < tlen, not z-dropped)
+    never returns, so the frozen state is the final one."""
+    dev = q.device
+    B, LQ = q.shape
+    LT = t.shape[1]
+    i32 = torch.int32
+    q = q.to(i32)
+    t = t.to(i32)
+    qlen = qlen.to(i32)
+    tlen = tlen.to(i32)
+    h0 = h0.to(i32)
+    neg = torch.tensor(NEG_INF, dtype=i32, device=dev)
+    jidx = torch.arange(1, LQ + 1, dtype=i32, device=dev)[None, :]
+    valid_q = jidx <= qlen[:, None]
+    row0 = h0[:, None] - GAP_OPEN - jidx * GAP_EXT
+    h = torch.where((row0 >= 0) & valid_q, row0, neg)
+    h_first = h0.clone()
+    e = torch.full((B, LQ), NEG_INF, dtype=i32, device=dev)
+    best = h0.clone()
+    qle = torch.zeros(B, dtype=i32, device=dev)
+    tle = torch.zeros(B, dtype=i32, device=dev)
+    gscore = torch.full((B,), NEG_INF, dtype=i32, device=dev)
+    gtle = torch.zeros(B, dtype=i32, device=dev)
+    dead = torch.zeros(B, dtype=torch.bool, device=dev)
+    at_qlen = jidx == qlen[:, None]
+    qlen_zero = qlen == 0
+    neg_col = torch.full((B, 1), NEG_INF, dtype=i32, device=dev)
+    s_amb = torch.tensor(AMBIG, dtype=i32, device=dev)
+    s_match = torch.tensor(MATCH, dtype=i32, device=dev)
+    s_mis = torch.tensor(-MISMATCH, dtype=i32, device=dev)
+    big = torch.tensor(BIG, dtype=i32, device=dev)
+    q_amb = q > 3
+    n_rows = min(LT, int(tlen.max())) if B else 0
+    for i in range(n_rows):
+        active = (i < tlen) & ~dead
+        if not bool(active.any()):
+            break
+        tcol = t[:, i:i + 1]
+        sub = torch.where(q_amb | (tcol > 3), s_amb,
+                          torch.where(q == tcol, s_match, s_mis))
+        diag = torch.cat([h_first[:, None], h[:, :-1]], dim=1) + sub
+        ecand = torch.maximum(h - GAP_OPEN, e) - GAP_EXT
+        g = torch.maximum(diag, ecand)
+        h0_col = h0 - GAP_OPEN - (i + 1) * GAP_EXT
+        pref = torch.cat([neg_col, torch.cummax(g + jidx * GAP_EXT,
+                                                dim=1).values[:, :-1]], dim=1)
+        f = pref - GAP_OPEN - jidx * GAP_EXT
+        h_row = torch.where(valid_q, torch.maximum(g, f), neg)
+        row_best = h_row.max(dim=1).values
+        row_arg = torch.where(h_row == row_best[:, None], jidx,
+                              big).min(dim=1).values
+        improved = active & (row_best > best)
+        best = torch.where(improved, row_best, best)
+        qle = torch.where(improved, row_arg, qle)
+        tle = torch.where(improved, torch.full_like(tle, i + 1), tle)
+        h_at_qlen = torch.where(
+            qlen_zero, h0_col,
+            torch.where(at_qlen, h_row, neg).max(dim=1).values)
+        gimp = active & (h_at_qlen > gscore)
+        gscore = torch.where(gimp, h_at_qlen, gscore)
+        gtle = torch.where(gimp, torch.full_like(gtle, i + 1), gtle)
+        dead = dead | (active & (row_best < best - ZDROP))
+        h_first = torch.where(active, h0_col, h_first)
+        h = torch.where(active[:, None], h_row, h)
+        e = torch.where(active[:, None], torch.where(valid_q, ecand, neg), e)
+    return {"max_score": best, "qle": qle, "tle": tle, "gscore": gscore,
+            "gtle": gtle}
+
+
+def extend_batch_resident_plain(q4, qlen, tstart, tlen, h0, refp, n_codes,
+                                LQ, LT, reverse) -> dict:
+    """Plain version of the resident entry: unpack the queries, gather the
+    target windows from the packed genome, extend."""
+    q = unpack_nibbles(q4, LQ)
+    t = gather_ref_windows(refp, n_codes, tstart, tlen, LT, reverse)
+    return extend_batch_plain(q, qlen, t, tlen, h0)
+
+
+def _check(name, x, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def extend_batch_resident(q4: torch.Tensor, qlen: torch.Tensor,
+                          tstart: torch.Tensor, tlen: torch.Tensor,
+                          h0: torch.Tensor, refp: torch.Tensor, n_codes: int,
+                          LQ: int, LT: int, reverse: bool) -> dict:
+    """Extension of B jobs against the resident packed genome.
+
+    q4 [B, ceil(LQ/2)] uint8 nibble-packed queries; qlen, tstart, tlen,
+    h0 [B] int32; refp [ceil(G/2)] uint8 the packed genome of n_codes
+    codes.  tstart is the genome index of the window's first element in
+    scan order (left extensions walk backwards: reverse=True).
+
+    A CUDA tensor launches csrc/extend.cu (no fallback); a CPU tensor
+    runs extend_batch_resident_plain."""
+    dev = q4.device
+    B = q4.shape[0]
+    _check("q4", q4, torch.uint8, (B, (LQ + 1) // 2), dev)
+    for name, x in (("qlen", qlen), ("tstart", tstart), ("tlen", tlen),
+                    ("h0", h0)):
+        _check(name, x, torch.int32, (B,), dev)
+    _check("refp", refp, torch.uint8, ((n_codes + 1) // 2,), dev)
+    key = "extend_left" if reverse else "extend_right"
+    if dev.type == "cpu":
+        PLAIN_CALLS[key] += 1
+        return extend_batch_resident_plain(q4, qlen, tstart, tlen, h0, refp,
+                                           n_codes, LQ, LT, reverse)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .. import _build
+    lib = _build.lib()
+    if lib.seeksv_extend_cells_per_thread(LQ) == 0:
+        raise ValueError(f"query bucket LQ={LQ} has no block shape "
+                         "(needs a multiple of 32, at most 16384)")
+    out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    if B == 0:
+        return dict(zip(KEYS, out.unbind(0)))
+    rc = lib.seeksv_extend_resident(
+        q4.data_ptr(), qlen.data_ptr(), tstart.data_ptr(), tlen.data_ptr(),
+        h0.data_ptr(), refp.data_ptr(), n_codes, B, LQ, LT, int(reverse),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "seeksv_extend_resident")
+    LAUNCHES[key] += 1
+    return dict(zip(KEYS, out.unbind(0)))
