@@ -7,21 +7,34 @@ Phases (each prints its lines; any failure exits non-zero):
 
 1. provenance: torch and CUDA versions, nvcc, triton, the card's name and
    power limit, and the build of the port's CUDA kernels from
-   seeksv_tpu_torch/csrc;
+   seeksv_tpu_torch/csrc (one nvcc per source, all started together);
 2. each kernel against its plain PyTorch version on the card, exactly
-   (integer outputs, tolerance 0), at the main path's shapes: extension
-   B = 18,143 jobs at LQ 1024 / LT 1536 in both directions (windows off
-   the genome and tlen = 0 rows included), the banded direction pass at
-   K = 128 and 256 on LQ 1024, and the walk on its output; each kernel's
-   time beside its plain version's;
+   (integer outputs, tolerance 0), with each kernel's time beside its
+   plain version's:
+   - K1 on the resident genome at B = 18,143 jobs, LQ 1024 / LT 1536, in
+     both directions (windows off the genome and tlen = 0 rows included).
+     18,143 is the flagship's job count in the TPU record
+     (BENCH_SCALE.jsonl:27); this simulator gives the flagship 17,999,
+     and phase 3 prints the slice's own count beside it;
+   - K1w on uploaded windows at one ``--device-align`` chunk's shape:
+     B = 8,192 (1,024 strand reads x 8 slots), LQ 1024, LT 1152, half the
+     rows empty slots (qlen = tlen = 0);
+   - the banded direction pass at K = 128 and 256 on LQ 1024, and the
+     walk on its output;
 3. the slice: the repo's virus-integration flagship dataset (40 Mb host
    + 12 Mb virus panel, 25x, 1 kb reads, insert mean 3000, 6,000
    integrations at 4 % divergence, error rate 0.002, seed 1) through
-   ``seeksv_tpu_torch``'s ``run`` on the card, launch counters reset
-   just before and read just after; then the same run with the native
-   host kernels (``force_host``): ``.clip.sam``, ``.sv`` and the
-   decompressed ``.clip.gz`` must be byte-identical, and at least 90 %
-   of the virus junctions of the truth must be called.
+   ``seeksv_tpu_torch``'s ``run`` on the card four times: the default
+   path, ``device_seed``, ``device_align``, and the streaming driver with
+   ``device_align`` at 400,000 records per slab; the launch counters are
+   reset just before each run and read just after, and each run must
+   launch exactly its own set of kernels.  Between the first two, K4 (the
+   k-mer lookup) is held against its plain version on the first 1,024
+   strand reads of the run's clip fastq (uint16 keys).  Then the same run
+   with the native host kernels (``force_host``): every device run's
+   ``.clip.sam``, ``.sv`` and decompressed ``.clip.gz`` must be
+   byte-identical to it, no chunk may overflow to host seeding, and at
+   least 90 % of the virus junctions of the truth must be called.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -159,6 +172,94 @@ def check_extend(dev, rng, rows, B=18_143, G=52_000_000):
                       "ms_of": f"one launch, B={B} LQ={LQ} LT={LT}"}
 
 
+def check_extend_windows(dev, rng, rows, B=8192, G=1_000_000):
+    """K1w at one device_align chunk's shape against its plain version."""
+    import torch
+
+    from seeksv_tpu_torch.ops import extend as ext
+    LQ, LT = 1024, 1152
+    genome = rng.integers(0, 4, G, dtype=np.uint8)
+    k = np.arange(LT)[None, :]
+    qlen = rng.integers(0, LQ + 1, B).astype(np.int32)
+    tlen = np.minimum(qlen + 100, LT).astype(np.int32)
+    h0 = rng.integers(19, 80, B).astype(np.int32)
+    empty = rng.random(B) < 0.5                       # invalid slots
+    qlen[empty] = 0
+    tlen[empty] = 0
+    h0[empty] = 0
+    start = rng.integers(0, G - LT, B)
+    t = genome[start[:, None] + k]
+    q = t[:, :LQ].copy()
+    sub = rng.random(q.shape) < 0.02
+    q[sub] = rng.integers(0, 4, int(sub.sum()))
+    q[::10] = rng.integers(0, 4, (len(q[::10]), LQ))  # z-drops
+    q[k[:, :LQ] >= qlen[:, None]] = 4
+    t[k >= tlen[:, None]] = 4
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (q, qlen, t, tlen, h0)]
+    got = ext.extend_batch(*args)
+    want = ext.extend_batch_plain(*args)
+    torch.cuda.synchronize()
+    err = _max_abs_err([(got[x], want[x]) for x in ext.KEYS])
+    ms = _cuda_ms(lambda: ext.extend_batch(*args), 3)
+    plain_ms = _cuda_ms(lambda: ext.extend_batch_plain(*args), 1)
+    _say(f"extend_windows: B={B} ({int(empty.sum())} empty) LQ={LQ} "
+         f"LT={LT} max_abs_err={err} kernel {ms:.3f} ms, plain "
+         f"{plain_ms:.3f} ms")
+    if err:
+        raise AssertionError("extend_windows disagrees with its plain "
+                             "version")
+    rows["extend_windows"] = {
+        "route": "cuda", "source": "seeksv_tpu_torch/csrc/extend.cu",
+        "replaces": "seeksv_tpu/ops/pallas_sw.py:161",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "ms_of": f"one launch, B={B} LQ={LQ} LT={LT}"}
+
+
+def check_seed_lookup(dev, index, clip_fq, rows, n_strand=1024):
+    """K4 against its plain version on the first n_strand strand reads of
+    the slice's clip fastq, against the flagship's table."""
+    import torch
+
+    from seeksv_tpu.align.index import ENCODE
+    from seeksv_tpu_torch.ops import seed_device as sd
+    reads = []
+    with gzip.open(clip_fq, "rt") as f:
+        while len(reads) < n_strand:
+            if not f.readline():
+                break
+            fwd = ENCODE[np.frombuffer(f.readline().strip().encode(),
+                                       np.uint8)]
+            f.readline()
+            f.readline()
+            reads += [fwd, np.where(fwd[::-1] < 4, 3 - fwd[::-1],
+                                    4).astype(np.uint8)]
+    seeder = sd.TorchDeviceSeeder.from_index(index, dev)
+    mat, lens = seeder.upload(sd.pad_reads(reads, index.k))
+    args = (mat, lens, seeder.keys, seeder.prefix_tab, seeder.shift,
+            index.k, seeder.search_iters)
+    lo, cnt = sd.seed_lookup(*args)
+    want_lo, want_cnt = sd.seed_lookup_plain(*args)
+    torch.cuda.synchronize()
+    err = _max_abs_err([(lo, want_lo), (cnt, want_cnt)])
+    ms = _cuda_ms(lambda: sd.seed_lookup(*args), 3)
+    plain_ms = _cuda_ms(lambda: sd.seed_lookup_plain(*args), 1)
+    shape = (f"N={mat.shape[0]} LP={mat.shape[1]} "
+             f"({lo.numel()} k-mers), {index.keys.dtype} keys")
+    _say(f"seed_lookup: {len(reads)} strand reads, {shape}, "
+         f"{int((cnt > 0).sum())} k-mers with hits, search_iters="
+         f"{seeder.search_iters}, max_abs_err={err} kernel {ms:.3f} ms, "
+         f"plain {plain_ms:.3f} ms")
+    if err or not int((cnt > 0).sum()):
+        raise AssertionError("seed_lookup disagrees with its plain version "
+                             "or finds nothing")
+    rows["seed_lookup"] = {
+        "route": "cuda", "source": "seeksv_tpu_torch/csrc/seed_lookup.cu",
+        "replaces": "seeksv_tpu/ops/seed_device.py:64",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "ms_of": f"one launch, {shape}"}
+
+
 def _finalize_pairs(rng, B, LQ, lim):
     """Long-fragment (q, t) pairs: a genome-like window against a copy
     with a small indel and 3 % substitutions, |n - m| <= lim."""
@@ -242,11 +343,52 @@ def check_finalize(dev, rng, rows, B=4096):
                       "rungs": rungs}
 
 
-def run_slice(dev, workdir, card):
-    from seeksv_tpu_torch.align.engine import TorchBatchAligner
+# the kernels each run of the slice must launch (and no others)
+EXPECTED = {
+    "device": ("extend_left", "extend_right", "banded_dir", "traceback"),
+    "device_seed": ("seed_lookup", "extend_left", "extend_right",
+                    "banded_dir", "traceback"),
+    "device_align": ("seed_lookup", "extend_windows", "banded_dir",
+                     "traceback"),
+    "stream_device_align": ("seed_lookup", "extend_windows", "banded_dir",
+                            "traceback"),
+}
+
+
+def _counters():
     from seeksv_tpu_torch.ops import extend as ext
     from seeksv_tpu_torch.ops import global_device as gd
+    from seeksv_tpu_torch.ops import seed_device as sd
+    return (ext.LAUNCHES, gd.LAUNCHES, sd.LAUNCHES, sd.OVERFLOW)
+
+
+def _drive(name, fn):
+    """Run fn with every counter at 0 just before; return its result and
+    the launches it made; fail unless they are exactly EXPECTED[name]."""
+    counts = _counters()
+    for c in counts:
+        for key in c:
+            c[key] = 0
+    res = fn()
+    launches = {k: v for c in counts[:3] for k, v in c.items()}
+    overflow = dict(counts[3])
+    _say(f"slice {name}: launches {json.dumps(launches)} hit_cap "
+         f"{json.dumps(overflow)}")
+    want = EXPECTED[name]
+    wrong = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
+    if wrong:
+        raise AssertionError(f"slice {name}: expected launches of exactly "
+                             f"{want}, got {launches}")
+    if overflow["to_host"]:
+        raise AssertionError(f"slice {name}: {overflow['to_host']} chunk(s) "
+                             "overflowed to host seeding")
+    return res, launches
+
+
+def run_slice(dev, workdir, card, rows):
+    from seeksv_tpu_torch.align.engine import TorchBatchAligner
     from seeksv_tpu_torch.pipeline.driver import run_pipeline
+    from seeksv_tpu_torch.pipeline.stream import run_pipeline_streaming
     from seeksv_tpu_torch.utils.dataset import build_dataset, truth_recall
     t0 = time.perf_counter()
     paths = build_dataset(os.path.join(workdir, "flagship"), 40_000_000,
@@ -259,42 +401,57 @@ def run_slice(dev, workdir, card):
     _say(f"slice: k-mer index built in {time.perf_counter() - t0:.1f} s")
     out = os.path.join(workdir, "out")
     os.makedirs(out, exist_ok=True)
-    for counts in (ext.LAUNCHES, gd.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
-    dev_run = run_pipeline(paths["ref_fa"], paths["bam"],
-                           os.path.join(out, "dev"), device=dev,
-                           index=index)
-    launches = {**ext.LAUNCHES, **gd.LAUNCHES}
-    _say(f"slice: launches in the device run {json.dumps(launches)}")
-    host_run = run_pipeline(paths["ref_fa"], paths["bam"],
-                            os.path.join(out, "host"), device=dev,
-                            force_host=True, index=index)
-    for name, res in (("device", dev_run), ("force_host", host_run)):
+    ref, bam = paths["ref_fa"], paths["bam"]
+    runs = {}
+    launches = {}
+
+    def drive(name, fn):
+        runs[name], launches[name] = _drive(name, fn)
+
+    drive("device", lambda: run_pipeline(
+        ref, bam, os.path.join(out, "device"), device=dev, index=index))
+    n_jobs = runs["device"]["aligner"].last_dispatch["n_jobs"]
+    _say(f"slice: the default run dispatched {n_jobs} extension jobs per "
+         f"direction (phase 2's K1 shape is the TPU record's 18,143)")
+    check_seed_lookup(dev, index, os.path.join(out, "device.clip.fq.gz"),
+                      rows)
+    drive("device_seed", lambda: run_pipeline(
+        ref, bam, os.path.join(out, "device_seed"), device=dev, index=index,
+        device_seed=True))
+    drive("device_align", lambda: run_pipeline(
+        ref, bam, os.path.join(out, "device_align"), device=dev,
+        index=index, device_align=True))
+    drive("stream_device_align", lambda: run_pipeline_streaming(
+        ref, bam, os.path.join(out, "stream_device_align"), device=dev,
+        index=index, device_align=True, chunk_records=400_000))
+    runs["force_host"] = run_pipeline(ref, bam, os.path.join(out, "host"),
+                                      device=dev, force_host=True,
+                                      index=index)
+    for name, res in runs.items():
         st = {k: round(v, 3) for k, v in res["stages_s"].items()}
         al = {k: round(v, 3) for k, v in res["aligner"].timings.items()}
         _say(f"slice {name} on {card}: stages_s {json.dumps(st)} "
              f"aligner_s {json.dumps(al)}")
-    _say(f"slice: dispatch {json.dumps(dev_run['aligner'].last_dispatch)}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched in the slice: "
-                             f"{missing}")
+    _say(f"slice: dispatch {json.dumps(runs['device']['aligner'].last_dispatch)}")
+    host = {}
     for suffix in ("clip.sam", "sv"):
-        with open(os.path.join(out, f"dev.{suffix}"), "rb") as a, \
-                open(os.path.join(out, f"host.{suffix}"), "rb") as b:
-            da, db = a.read(), b.read()
-        if da != db:
-            raise AssertionError(f".{suffix} differs between the device "
-                                 "and force_host runs")
-        _say(f"slice: .{suffix} byte-identical device vs force_host "
-             f"({len(da)} bytes)")
-    with gzip.open(os.path.join(out, "dev.clip.gz")) as a, \
-            gzip.open(os.path.join(out, "host.clip.gz")) as b:
-        if a.read() != b.read():
-            raise AssertionError(".clip.gz differs")
+        with open(os.path.join(out, f"host.{suffix}"), "rb") as f:
+            host[suffix] = f.read()
+    with gzip.open(os.path.join(out, "host.clip.gz")) as f:
+        host["clip.gz"] = f.read()
+    for name in EXPECTED:
+        for suffix in ("clip.sam", "sv", "clip.gz"):
+            path = os.path.join(out, f"{name}.{suffix}")
+            opener = gzip.open if suffix.endswith(".gz") else open
+            with opener(path, "rb") as f:
+                if f.read() != host[suffix]:
+                    raise AssertionError(f"{name}.{suffix} differs from "
+                                         "the force_host run")
+        _say(f"slice: {name} .clip.sam/.sv/.clip.gz byte-identical to "
+             f"force_host ({len(host['clip.sam'])} / {len(host['sv'])} / "
+             f"{len(host['clip.gz'])} bytes)")
     del_recall, recall = truth_recall(paths["truth"],
-                                      os.path.join(out, "dev.sv"))
+                                      os.path.join(out, "device.sv"))
     _say(f"slice: truth recall DEL {del_recall}, virus junctions {recall}")
     if recall < 0.9:
         raise AssertionError(f"virus junction recall {recall} < 0.9")
@@ -324,11 +481,14 @@ def main() -> int:
     rng = np.random.default_rng(1)
     rows = {}
     check_extend(dev, rng, rows)
+    check_extend_windows(dev, rng, rows)
     check_finalize(dev, rng, rows)
-    launches = run_slice(dev, args.workdir, card)
+    by_run = run_slice(dev, args.workdir, card, rows)
     kernels = []
     for name, row in rows.items():
-        kernels.append({"name": name, "launches": launches[name], **row})
+        per_run = {run: c[name] for run, c in by_run.items()}
+        kernels.append({"name": name, "launches": sum(per_run.values()),
+                        "launches_by_run": per_run, **row})
     _say(f"total {time.perf_counter() - t_all:.1f} s on {card}")
     _say(card)
     _say(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``seeksv_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
+Hopper (``sm_90a``), one compiler process per source, all started
+together, and linked into one shared library with a plain C interface,
 at first use, under ``build/seeksv_tpu_torch/<source hash>/`` in the
 checkout.  The library is loaded with ``ctypes``; each entry point takes
 device pointers and the CUDA stream as ``c_void_p`` and returns the
@@ -25,8 +26,9 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "seeksv_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 LIB_NAME = "libseeksv_tpu_torch_kernels.so"
 
 _lock = threading.RLock()
@@ -44,6 +46,12 @@ _SIGNATURES = {
     # out, stream
     "seeksv_extend_resident": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
                                _P, _P],
+    # q, qlen, t, tlen, h0, B, LQ, LT, out, stream
+    "seeksv_extend_windows": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # mat, lens, N, LP, k, keys, n_keys, key_bits, prefix_tab, tab_size,
+    # shift, max_occ, lo, cnt, stream
+    "seeksv_seed_lookup": [_P, _P, _I, _I, _I, _P, _LL, _I, _P, _LL, _I, _I,
+                           _P, _P, _P],
     # q, t, dlo, m, n, B, LQ, LT, K, score, dirs, stream
     "seeksv_banded_dir": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # dirs, m, n, dlo, B, LQ, K, runs_len, runs_op, n_runs, stream
@@ -84,14 +92,32 @@ def _build() -> str:
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     tmp = os.path.join(out_dir, f".{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    jobs = []
+    for src in srcs:
+        obj = os.path.join(out_dir, f".{os.path.basename(src)}."
+                                    f"{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _obj, proc in jobs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"exit {proc.returncode}: {' '.join(cmd)}")
+    build_info["log"] = "".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed) + "\n"
+                           + build_info["log"])
+    cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *(obj for _c, obj, _p in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_info["log"] = proc.stdout + proc.stderr
+    for _c, obj, _p in jobs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{build_info['log']}")
+        raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib_path)   # atomic: concurrent builds never tear
     build_info.update(seconds=time.perf_counter() - t0, path=lib_path)
     return lib_path

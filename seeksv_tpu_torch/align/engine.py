@@ -9,7 +9,13 @@ are inherited unchanged; what differs is where the two device steps run:
   kept on the device (``packed_reference``);
 - the finalize stage's long-fragment tracebacks go through
   ``ops.global_device.TorchDeviceGlobalAligner``, in a thread that runs
-  beside the native host ladder.
+  beside the native host ladder;
+- ``device_seed`` seeds through ``ops.seed_device.TorchDeviceSeeder``
+  (K4 lookup) before the resident extension; ``device_align`` runs the
+  whole front-end through ``ops.align_device.TorchDeviceAligner`` (device
+  seeding, window gather, both rounds on K1w), then the finalize.  A
+  chunk whose hits overflow the largest hit_cap is seeded on the host, as
+  the reference does, and counted in ``ops.seed_device.OVERFLOW``.
 
 Dispatch: no H100 crossover has been measured yet, so every extension
 batch and every eligible finalize job goes to the device (crossover 0,
@@ -30,6 +36,7 @@ from seeksv_tpu.align.engine import (ENCODE, MIN_SEED_LEN, PEN_CLIP, SCORE_T,
 from seeksv_tpu.align.index import KmerIndex
 
 from ..ops.global_device import TorchDeviceGlobalAligner
+from ..ops.seed_device import OVERFLOW, TorchDeviceSeeder, hit_cap_ladder
 
 # Dispatch constants until an H100 calibration exists: every batch and
 # every eligible finalize job goes to the device.
@@ -68,16 +75,54 @@ class TorchBatchAligner(BatchAligner):
     (``cuda`` launches the CUDA kernels; ``cpu`` runs their plain
     versions, for tests)."""
 
-    def __init__(self, index: KmerIndex, device="cuda"):
-        super().__init__(index)
+    def __init__(self, index: KmerIndex, device="cuda",
+                 device_seed: bool = False, device_align: bool = False):
+        super().__init__(index, device_seed=device_seed,
+                         device_align=device_align)
         self.device = torch.device(device)
         self._dga: Optional[TorchDeviceGlobalAligner] = None
 
     @classmethod
     def from_fasta(cls, path: str, k: int = MIN_SEED_LEN, cache: bool = True,
-                   device="cuda") -> "TorchBatchAligner":
+                   device="cuda", **flags) -> "TorchBatchAligner":
         return cls(Aligner.from_fasta(path, k=k, cache=cache).idx,
-                   device=device)
+                   device=device, **flags)
+
+    def _device_seeder(self) -> TorchDeviceSeeder:
+        if self._seeder is None:
+            self._seeder = TorchDeviceSeeder.from_index(self.idx, self.device)
+        return self._seeder
+
+    def _device_aligner(self):
+        if self._device_al is None:
+            from ..ops.align_device import TorchDeviceAligner
+            self._device_al = TorchDeviceAligner(
+                self.idx, self.device, seeder=self._device_seeder())
+        return self._device_al
+
+    def _device_candidates(self, strand_reads, hit_cap: int = 1 << 18,
+                           max_hit_cap: int = 1 << 22):
+        """batch_candidates' mapping from the device seeder, in the device
+        aligner's chunks and hit_cap ladder.  (The reference seeds the whole
+        batch at one hit_cap, which overflows to the host at the flagship's
+        size; per-read candidates do not depend on the batch, so the
+        result is the same.)  A chunk that overflows the largest cap is
+        seeded on the host and counted."""
+        from seeksv_tpu.align.seed_batch import batch_candidates
+        from ..ops.align_device import TorchDeviceAligner
+        seeder = self._device_seeder()
+        chunk = TorchDeviceAligner.CHUNK
+        cands = {}
+        for c0 in range(0, len(strand_reads), chunk):
+            part = strand_reads[c0:c0 + chunk]
+            sub = hit_cap_ladder(lambda cap: seeder.seed(part, cap),
+                                 hit_cap, max_hit_cap)
+            if sub is None:
+                OVERFLOW["to_host"] += 1
+                sub = batch_candidates(self.idx, part)
+            for j, v in sub.items():
+                cands[c0 + j] = v
+        return cands
 
     def _device_ref_packed(self):
         return packed_reference(self.idx, self.device)
@@ -90,13 +135,10 @@ class TorchBatchAligner(BatchAligner):
                     force_host: bool = False) -> List[Alignment]:
         """BatchAligner.batch_align with the device branch on torch.
         force_device is accepted for the shared driver's signature; the
-        device is always chosen unless force_host is set."""
-        from seeksv_tpu.align.seed_batch import batch_candidates
-        if self.device_seed or self.device_align:
-            raise NotImplementedError(
-                "device seeding and the device front-end are not ported")
-        idx = self.idx
-        jobs = []  # (read_i, strand, diag, q_start, anchor_len, tid)
+        device is always chosen unless force_host is set (force_host moves
+        the extension and the finalize to the host; the device_seed and
+        device_align front-ends run on the device all the same, as in the
+        reference)."""
         per_read_codes: List[Tuple[np.ndarray, np.ndarray]] = []
         strand_reads: List[np.ndarray] = []
         for seq in seqs:
@@ -105,9 +147,44 @@ class TorchBatchAligner(BatchAligner):
             rev = np.where(rev < 4, 3 - rev, 4).astype(np.uint8)
             per_read_codes.append((fwd, rev))
             strand_reads.extend((fwd, rev))
+        results_by_read: Dict[int, list] = {i: [] for i in range(len(seqs))}
+        dres = None
+        if self.device_align:
+            # the whole front-end on the device (engine.py:569-589)
+            t0 = time.perf_counter()
+            dres = self._device_aligner().align_jobs(strand_reads)
+            self.timings["device_extend_s"] += time.perf_counter() - t0
+            if dres is None:
+                OVERFLOW["to_host"] += 1   # a chunk beyond the largest cap
+        if dres is not None:
+            for job_i, lst in dres.items():
+                ri, strand = divmod(job_i, 2)
+                for final, tid, qb, qe, rb, rend in lst:
+                    results_by_read[ri].append(
+                        (strand, final, final, tid, qb, qe, rb, rend))
+        else:
+            self._seed_and_extend(strand_reads, per_read_codes,
+                                  results_by_read, force_host)
         t0 = time.perf_counter()
-        cands = batch_candidates(idx, strand_reads)
+        out = self._finalize_many(per_read_codes, seqs, results_by_read,
+                                  force_device=force_device,
+                                  force_host=force_host)
+        self.timings["finalize_s"] += time.perf_counter() - t0
+        return out
+
+    def _seed_and_extend(self, strand_reads, per_read_codes, results_by_read,
+                         force_host: bool) -> None:
+        """Seeding (on the host, or on the device with device_seed), then
+        both extension rounds (engine.py:590-808)."""
+        from seeksv_tpu.align.seed_batch import batch_candidates
+        idx = self.idx
+        t0 = time.perf_counter()
+        if self.device_seed:
+            cands = self._device_candidates(strand_reads)
+        else:
+            cands = batch_candidates(idx, strand_reads)
         self.timings["seed_s"] += time.perf_counter() - t0
+        jobs = []  # (read_i, strand, diag, q_start, anchor_len, tid)
         for job_i, cand_list in cands.items():
             ri, strand = divmod(job_i, 2)
             for diag, q_start, anchor_len, _v in cand_list:
@@ -115,16 +192,9 @@ class TorchBatchAligner(BatchAligner):
                 if tid < 0:
                     continue
                 jobs.append((ri, strand, diag, q_start, anchor_len, tid))
-        results_by_read: Dict[int, list] = {i: [] for i in range(len(seqs))}
         if jobs:
             self._extend_jobs(jobs, per_read_codes, results_by_read,
                               force_host)
-        t0 = time.perf_counter()
-        out = self._finalize_many(per_read_codes, seqs, results_by_read,
-                                  force_device=force_device,
-                                  force_host=force_host)
-        self.timings["finalize_s"] += time.perf_counter() - t0
-        return out
 
     def _extend_jobs(self, jobs, per_read_codes, results_by_read,
                      force_host: bool) -> None:

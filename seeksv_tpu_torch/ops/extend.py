@@ -1,7 +1,8 @@
 """Batched anchored affine-gap extension (the aligner's inner loop).
 
-Counterpart of ``seeksv_tpu/ops/pallas_sw.py`` (the Pallas kernel and its
-resident-genome entry) and ``seeksv_tpu/ops/jax_kernels.py:sw_extend_batch``.
+Counterpart of ``seeksv_tpu/ops/pallas_sw.py`` (the Pallas kernel, its
+resident-genome entry and its window entry) and
+``seeksv_tpu/ops/jax_kernels.py:sw_extend_batch``.
 
 - ``extend_batch_plain``: the plain PyTorch version on [B, LQ] / [B, LT]
   code tensors, any device.  It is the exact-prefix-max formulation of
@@ -13,6 +14,9 @@ resident-genome entry) and ``seeksv_tpu/ops/jax_kernels.py:sw_extend_batch``.
 - ``extend_batch_resident``: the wrapper.  On a CUDA tensor it launches
   the CUDA kernel (csrc/extend.cu, target gather fused into the kernel's
   loads) and counts the launch; on a CPU tensor it runs the plain version.
+- ``extend_batch``: the wrapper on uint8 [B, LQ] / [B, LT] windows already
+  on the device (the device front-end's), counterpart of
+  ``pallas_extend_batch``; the same kernel reads them as they lie.
 
 Scores: match +1, mismatch -4, ambiguous (code > 3) -1, gap open 6,
 extend 1, z-drop 100.  Outputs per job: max_score, qle/tle (first
@@ -33,10 +37,11 @@ ZDROP = 100
 BIG = 0x7FFFFFFF
 KEYS = ("max_score", "qle", "tle", "gscore", "gtle")
 
-# CUDA launches by direction (left = reversed windows); plain-version
-# calls made for CPU tensors are counted apart
-LAUNCHES = {"extend_left": 0, "extend_right": 0}
-PLAIN_CALLS = {"extend_left": 0, "extend_right": 0}
+# CUDA launches of the resident entry by direction (left = reversed
+# windows) and of the window entry; plain-version calls made for CPU
+# tensors are counted apart
+LAUNCHES = {"extend_left": 0, "extend_right": 0, "extend_windows": 0}
+PLAIN_CALLS = {"extend_left": 0, "extend_right": 0, "extend_windows": 0}
 
 
 def pack_nibbles(a: np.ndarray) -> np.ndarray:
@@ -191,6 +196,40 @@ def extend_batch_resident(q4: torch.Tensor, qlen: torch.Tensor,
         PLAIN_CALLS[key] += 1
         return extend_batch_resident_plain(q4, qlen, tstart, tlen, h0, refp,
                                            n_codes, LQ, LT, reverse)
+    return _launch("seeksv_extend_resident", key, dev, B, LQ, q4.data_ptr(),
+                   qlen.data_ptr(), tstart.data_ptr(), tlen.data_ptr(),
+                   h0.data_ptr(), refp.data_ptr(), n_codes, B, LQ, LT,
+                   int(reverse))
+
+
+def extend_batch(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
+                 tlen: torch.Tensor, h0: torch.Tensor) -> dict:
+    """Extension of B jobs on windows already on the device: q [B, LQ] and
+    t [B, LT] uint8 codes (0..4), qlen, tlen, h0 [B] int32.  Returns the
+    KEYS as int32 [B] tensors, as pallas_extend_batch does.
+
+    A CUDA tensor launches csrc/extend.cu's window entry (no fallback); a
+    CPU tensor runs extend_batch_plain."""
+    dev = q.device
+    if q.dim() != 2 or t.dim() != 2:
+        raise ValueError("q and t must be [B, L] code matrices")
+    B, LQ = q.shape
+    LT = t.shape[1]
+    _check("q", q, torch.uint8, (B, LQ), dev)
+    _check("t", t, torch.uint8, (B, LT), dev)
+    for name, x in (("qlen", qlen), ("tlen", tlen), ("h0", h0)):
+        _check(name, x, torch.int32, (B,), dev)
+    if dev.type == "cpu":
+        PLAIN_CALLS["extend_windows"] += 1
+        return extend_batch_plain(q, qlen, t, tlen, h0)
+    return _launch("seeksv_extend_windows", "extend_windows", dev, B, LQ,
+                   q.data_ptr(), qlen.data_ptr(), t.data_ptr(),
+                   tlen.data_ptr(), h0.data_ptr(), B, LQ, LT)
+
+
+def _launch(entry: str, key: str, dev, B: int, LQ: int, *args) -> dict:
+    """Launch an entry of csrc/extend.cu on `dev` (CUDA, or raise) with
+    its leading arguments, then the output and the stream; count it."""
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from .. import _build
@@ -199,12 +238,9 @@ def extend_batch_resident(q4: torch.Tensor, qlen: torch.Tensor,
         raise ValueError(f"query bucket LQ={LQ} has no block shape "
                          "(needs a multiple of 32, at most 16384)")
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
-    if B == 0:
-        return dict(zip(KEYS, out.unbind(0)))
-    rc = lib.seeksv_extend_resident(
-        q4.data_ptr(), qlen.data_ptr(), tstart.data_ptr(), tlen.data_ptr(),
-        h0.data_ptr(), refp.data_ptr(), n_codes, B, LQ, LT, int(reverse),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "seeksv_extend_resident")
-    LAUNCHES[key] += 1
+    if B:
+        rc = getattr(lib, entry)(*args, out.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, entry)
+        LAUNCHES[key] += 1
     return dict(zip(KEYS, out.unbind(0)))

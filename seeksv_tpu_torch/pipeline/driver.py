@@ -25,8 +25,21 @@ from .._build import ensure_native
 from ..align.engine import TorchBatchAligner
 
 
+def native_stage(device: torch.device, stages: dict) -> None:
+    """Build the shared C++ host kernels once, timed as their own stage
+    (a first build takes seconds that are no part of read_bam); on a CUDA
+    device the library must load."""
+    t = time.perf_counter()
+    if not ensure_native() and device.type == "cuda":
+        raise RuntimeError(
+            "the native host library (csrc/libseeksv_native.so) did not "
+            "build or load; the CUDA path needs it")
+    stages["native"] = time.perf_counter() - t
+
+
 def run_pipeline(ref_fa: str, bam: str, prefix: str, *, device="cuda",
                  normal_bam: Optional[str] = None, force_host: bool = False,
+                 device_seed: bool = False, device_align: bool = False,
                  index: Optional[KmerIndex] = None,
                  log=lambda *a: None) -> dict:
     """Write ``{prefix}.clip.gz``, ``.clip.fq.gz``, ``.clip.sam``, ``.sv``
@@ -34,7 +47,10 @@ def run_pipeline(ref_fa: str, bam: str, prefix: str, *, device="cuda",
 
     device: where the extension and finalize kernels run (``cuda`` or
     ``cpu`` for their plain versions).  force_host: keep both on the
-    native host kernels.  index: a prebuilt k-mer index of ``ref_fa``
+    native host kernels.  device_seed / device_align: the device
+    front-ends of ``run --device-seed`` / ``--device-align`` (seeding on
+    the device; or seeding, window gather and both extension rounds).
+    index: a prebuilt k-mer index of ``ref_fa``
     (else built, or loaded from the ~/.cache/seeksv_tpu cache, as the
     reference does).  Returns {"stages_s": wall seconds per stage, "aligner": the
     TorchBatchAligner (its .timings split the realign stage)}.
@@ -44,13 +60,7 @@ def run_pipeline(ref_fa: str, bam: str, prefix: str, *, device="cuda",
     device = torch.device(device)
     stages = {}
     t0 = time.perf_counter()
-    # the shared C++ host kernels, built once (its own stage: a first
-    # build takes seconds that are no part of read_bam)
-    if not ensure_native() and device.type == "cuda":
-        raise RuntimeError(
-            "the native host library (csrc/libseeksv_native.so) did not "
-            "build or load; the CUDA path needs it")
-    stages["native"] = time.perf_counter() - t0
+    native_stage(device, stages)
     t = time.perf_counter()
     recs = read_bam(bam)
     stages["read_bam"] = time.perf_counter() - t
@@ -65,7 +75,8 @@ def run_pipeline(ref_fa: str, bam: str, prefix: str, *, device="cuda",
     stages["index"] = time.perf_counter() - t
     t = time.perf_counter()
     realign_clips(ref_fa, f"{prefix}.clip.fq.gz", f"{prefix}.clip.sam",
-                  aligner=aligner, force_host=force_host)
+                  aligner=aligner, device_seed=device_seed,
+                  device_align=device_align, force_host=force_host)
     if aligner.device.type == "cuda":
         torch.cuda.synchronize(aligner.device)
     stages["realign"] = time.perf_counter() - t

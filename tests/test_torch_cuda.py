@@ -12,6 +12,7 @@ import torch
 
 from seeksv_tpu_torch.ops import extend as ext
 from seeksv_tpu_torch.ops import global_device as tgd
+from seeksv_tpu_torch.ops import seed_device as tsd
 
 
 @pytest.fixture
@@ -130,22 +131,129 @@ def test_walk_matches_plain_on_random_dirs(cuda):
     assert (got[2] > tgd.RUNS_CAP).any()
 
 
-def test_slice_on_cuda_matches_force_host(cuda, tmp_path):
-    """A small virus-integration run on the card: byte-identical to the
-    native host path, through all three kernels."""
-    from seeksv_tpu_torch.pipeline.driver import run_pipeline
+@pytest.mark.parametrize("LQ", [64, 128, 1024, 2048])
+def test_extend_windows_matches_plain(cuda, LQ):
+    """The window entry (K1w) at the device front-end's shapes (LQ a
+    multiple of 64, LT = LQ + 128): genome windows with 2 % substitutions,
+    every tenth query random, a third of the rows empty slots."""
+    rng = np.random.default_rng(LQ)
+    G = 100_000
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    B, LT = 300, LQ + 128
+    k = np.arange(LT)[None, :]
+    qlen = rng.integers(0, LQ + 1, B).astype(np.int32)
+    tlen = np.minimum(qlen + 100, LT).astype(np.int32)
+    h0 = rng.integers(19, 60, B).astype(np.int32)
+    empty = np.arange(B) % 3 == 0
+    qlen[empty] = 0
+    tlen[empty] = 0
+    h0[empty] = 0
+    start = rng.integers(0, G - LT, B)
+    t = genome[start[:, None] + k]
+    q = t[:, :LQ].copy()
+    sub = rng.random(q.shape) < 0.02
+    q[sub] = rng.integers(0, 4, int(sub.sum()))
+    q[::10] = rng.integers(0, 4, (len(q[::10]), LQ))
+    q[k[:, :LQ] >= qlen[:, None]] = 4
+    t[k >= tlen[:, None]] = 4
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (q, qlen, t, tlen, h0)]
+    n0 = ext.LAUNCHES["extend_windows"]
+    got = ext.extend_batch(*args)
+    want = ext.extend_batch_plain(*args)
+    torch.cuda.synchronize()
+    assert ext.LAUNCHES["extend_windows"] == n0 + 1
+    for key in ext.KEYS:
+        assert torch.equal(got[key], want[key]), key
+    assert int((got["max_score"] > 50).sum()) > B // 4
+
+
+@pytest.mark.parametrize("G", [30_000, 2_200_000])
+def test_seed_lookup_matches_plain(cuda, G):
+    """K4 against its plain version on uint32 (30 kb) and uint16 (2.2 Mb)
+    keys, and the device seeder on it against the host seeder."""
+    from seeksv_tpu.align.index import KmerIndex
+    from seeksv_tpu.align.seed_batch import batch_candidates
+    rng = np.random.default_rng(G)
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    genome[G // 2:G // 2 + 4000] = np.tile(genome[:400], 10)   # repeats
+    idx = KmerIndex.build({"c": np.frombuffer(b"ACGT", np.uint8)[genome]},
+                          k=19)
+    assert idx.keys.dtype == (np.uint32 if G < 100_000 else np.uint16)
+    reads = []
+    for i in range(700):
+        ln = int(rng.integers(30, 1000))
+        st = int(rng.integers(0, G - ln))
+        r = genome[st:st + ln].copy()
+        r[rng.random(ln) < 0.02] = rng.integers(0, 5)
+        reads.append(r if i % 2 else np.where(r < 4, 3 - r, 4)[::-1].copy())
+    seeder = tsd.TorchDeviceSeeder.from_index(idx, cuda)
+    mat, lens = seeder.upload(tsd.pad_reads(reads, idx.k))
+    args = (mat, lens, seeder.keys, seeder.prefix_tab, seeder.shift, idx.k,
+            seeder.search_iters)
+    n0 = tsd.LAUNCHES["seed_lookup"]
+    lo, cnt = tsd.seed_lookup(*args)
+    want_lo, want_cnt = tsd.seed_lookup_plain(*args)
+    torch.cuda.synchronize()
+    assert tsd.LAUNCHES["seed_lookup"] == n0 + 1
+    assert torch.equal(lo, want_lo) and torch.equal(cnt, want_cnt)
+    assert int((cnt > 0).sum()) > 1000
+    assert seeder.seed(reads, hit_cap=1 << 22) == batch_candidates(idx,
+                                                                   reads)
+
+
+def _small_dataset(tmp_path):
     from seeksv_tpu_torch.utils.dataset import build_dataset
-    p = build_dataset(str(tmp_path / "ds"), 300_000, 10, 1000, 1, 2, False,
-                      virus_kb=60, virus_events=20)
-    for d in (ext.LAUNCHES, tgd.LAUNCHES):
+    return build_dataset(str(tmp_path / "ds"), 300_000, 10, 1000, 1, 2,
+                         False, virus_kb=60, virus_events=20)
+
+
+def _reset(*counts):
+    for d in counts:
         for k in d:
             d[k] = 0
+
+
+def test_slice_on_cuda_matches_force_host(cuda, tmp_path):
+    """A small virus-integration run on the card: byte-identical to the
+    native host path, through the resident extension and the finalize
+    kernels."""
+    from seeksv_tpu_torch.pipeline.driver import run_pipeline
+    p = _small_dataset(tmp_path)
+    _reset(ext.LAUNCHES, tgd.LAUNCHES, tsd.LAUNCHES)
     run_pipeline(p["ref_fa"], p["bam"], str(tmp_path / "dev"),
                  device="cuda")
-    counts = {**ext.LAUNCHES, **tgd.LAUNCHES}
+    counts = {**ext.LAUNCHES, **tgd.LAUNCHES, **tsd.LAUNCHES}
     run_pipeline(p["ref_fa"], p["bam"], str(tmp_path / "host"),
                  device="cuda", force_host=True)
-    assert min(counts.values()) > 0, counts
+    used = ("extend_left", "extend_right", "banded_dir", "traceback")
+    assert min(counts[k] for k in used) > 0, counts
+    assert counts["extend_windows"] == counts["seed_lookup"] == 0, counts
+    for suffix in ("clip.sam", "sv"):
+        assert (tmp_path / f"dev.{suffix}").read_bytes() == \
+            (tmp_path / f"host.{suffix}").read_bytes(), suffix
+
+
+@pytest.mark.parametrize("flag", ["device_align", "device_seed"])
+def test_front_end_on_cuda_matches_force_host(cuda, tmp_path, flag):
+    """The same run with a device front-end: device_align through K4, K1w
+    and the finalize kernels (no resident extension), device_seed through
+    K4 and the resident extension; no chunk overflows to the host."""
+    from seeksv_tpu_torch.pipeline.driver import run_pipeline
+    p = _small_dataset(tmp_path)
+    _reset(ext.LAUNCHES, tgd.LAUNCHES, tsd.LAUNCHES, tsd.OVERFLOW)
+    run_pipeline(p["ref_fa"], p["bam"], str(tmp_path / "dev"),
+                 device="cuda", **{flag: True})
+    counts = {**ext.LAUNCHES, **tgd.LAUNCHES, **tsd.LAUNCHES}
+    run_pipeline(p["ref_fa"], p["bam"], str(tmp_path / "host"),
+                 device="cuda", force_host=True)
+    used = {"device_align": ("seed_lookup", "extend_windows", "banded_dir",
+                             "traceback"),
+            "device_seed": ("seed_lookup", "extend_left", "extend_right",
+                            "banded_dir", "traceback")}[flag]
+    assert min(counts[k] for k in used) > 0, counts
+    assert all(v == 0 for k, v in counts.items() if k not in used), counts
+    assert tsd.OVERFLOW["to_host"] == 0
     for suffix in ("clip.sam", "sv"):
         assert (tmp_path / f"dev.{suffix}").read_bytes() == \
             (tmp_path / f"host.{suffix}").read_bytes(), suffix

@@ -154,3 +154,50 @@ def test_wrapper_rejects_bad_inputs():
         ext.extend_batch_resident(q4, i32, i32, i32, i32, refp, 10, 16, 16,
                                   False)
 
+
+
+def test_window_wrapper_matches_pallas_window_entry():
+    """extend_batch on uint8 windows (the device front-end's entry; on the
+    CPU its plain version) against pallas_extend_batch in interpret mode,
+    at a batch that is no multiple of the Pallas kernel's 128 lanes, with
+    the front-end's empty slots (qlen = tlen = h0 = 0) among the jobs."""
+    q, qlen, t, tlen, h0 = _jobs(9, 200, 64, 192)
+    empty = np.arange(200) % 3 == 0
+    qlen[empty] = 0
+    tlen[empty] = 0
+    h0[empty] = 0
+    q[empty] = 4
+    t[empty] = 4
+    ref = pallas_extend_batch(*(jnp.asarray(a) for a in
+                                (q, qlen, t, tlen, h0)), interpret=True)
+    before = dict(ext.PLAIN_CALLS)
+    got = ext.extend_batch(torch.from_numpy(q.astype(np.uint8)),
+                           torch.from_numpy(qlen),
+                           torch.from_numpy(t.astype(np.uint8)),
+                           torch.from_numpy(tlen), torch.from_numpy(h0))
+    assert ext.PLAIN_CALLS["extend_windows"] == before["extend_windows"] + 1
+    assert ext.PLAIN_CALLS["extend_left"] == before["extend_left"]
+    for k in KEYS:
+        assert got[k].dtype == torch.int32
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]),
+                                      err_msg=k)
+    assert (got["gscore"][torch.from_numpy(empty)] == ext.NEG_INF).all()
+    assert (got["max_score"][torch.from_numpy(empty)] == 0).all()
+
+
+def test_window_wrapper_rejects_bad_inputs():
+    q = torch.zeros((3, 32), dtype=torch.uint8)
+    t = torch.zeros((3, 64), dtype=torch.uint8)
+    i32 = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(TypeError):        # int32 windows
+        ext.extend_batch(q.int(), i32, t, i32, i32)
+    with pytest.raises(TypeError):
+        ext.extend_batch(q, i32, t, i32, i32.long())
+    with pytest.raises(ValueError):       # batch sizes differ
+        ext.extend_batch(q, i32, t[:2], i32, i32)
+    with pytest.raises(ValueError):
+        ext.extend_batch(q, i32[:2], t, i32, i32)
+    with pytest.raises(ValueError):       # not contiguous
+        ext.extend_batch(q, i32, t[:, ::2], i32, i32)
+    with pytest.raises(ValueError):
+        ext.extend_batch(q[0], i32, t, i32, i32)

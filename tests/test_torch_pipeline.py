@@ -104,7 +104,10 @@ except SystemExit as e:
         raise
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
 from seeksv_tpu_torch.ops import extend, global_device
-assert min(extend.PLAIN_CALLS.values()) > 0, extend.PLAIN_CALLS
+# the default run extends on the resident path, not on uploaded windows
+assert extend.PLAIN_CALLS["extend_left"] > 0, extend.PLAIN_CALLS
+assert extend.PLAIN_CALLS["extend_right"] > 0, extend.PLAIN_CALLS
+assert extend.PLAIN_CALLS["extend_windows"] == 0, extend.PLAIN_CALLS
 assert min(global_device.PLAIN_CALLS.values()) > 0, global_device.PLAIN_CALLS
 print("NO_JAX_OK")
 """
