@@ -24,14 +24,21 @@ Phases (each prints its lines; any failure exits non-zero):
 3. the slice: the repo's virus-integration flagship dataset (40 Mb host
    + 12 Mb virus panel, 25x, 1 kb reads, insert mean 3000, 6,000
    integrations at 4 % divergence, error rate 0.002, seed 1) through
-   ``seeksv_tpu_torch``'s ``run`` on the card four times: the default
+   ``seeksv_tpu_torch``'s ``run`` on the card six times: the default
    path, ``device_seed``, ``device_align``, and the streaming driver with
    ``device_align`` at 400,000 records per slab; the launch counters are
    reset just before each run and read just after, and each run must
    launch exactly its own set of kernels.  Between the first two, K4 (the
    k-mer lookup) is held against its plain version on the first 1,024
-   strand reads of the run's clip fastq (uint16 keys).  Then the same run
-   with the native host kernels (``force_host``): every device run's
+   strand reads of the run's clip fastq (uint16 keys).  Then the SPMD
+   pipeline on a one-rank NCCL mesh (``parallel.mesh.make_mesh``):
+   ``spmd_run_pipeline`` and ``spmd_run_pipeline_streaming`` (consensus on
+   the mesh, 400,000 records per slab), each through K1w, K2, K3, K5
+   (consensus scan) and K6 (discordant count) and no resident K1; K5 and
+   K6 are then held against their plain versions, exactly, on the inputs
+   of the SPMD run's first consensus call (plus 64 groups of random reads
+   that overflow max_slots = 8) and its discordant call.  Then the same
+   run with the native host kernels (``force_host``): every device run's
    ``.clip.sam``, ``.sv`` and decompressed ``.clip.gz`` must be
    byte-identical to it, no chunk may overflow to host seeding, and at
    least 90 % of the virus junctions of the truth must be called.
@@ -343,7 +350,97 @@ def check_finalize(dev, rng, rows, B=4096):
                       "rungs": rungs}
 
 
+def _keep_first_call(module, name, kept):
+    """Wrap module.<name> so that its first call's arguments land in
+    kept[name]; returns the undo."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        kept.setdefault(name, (args, kwargs))
+        return fn(*args, **kwargs)
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, fn)
+
+
+def check_consensus_scan(kept, rows):
+    """K5 against its plain version on the SPMD run's first consensus
+    call, with 64 groups of random reads appended (at least 16 each, so
+    max_slots = 8 overflows)."""
+    import torch
+
+    from seeksv_tpu_torch.ops import consensus_scan as cs
+    (seq_l, len_l, seq_r, len_r, n_reads, num, den), kw = kept
+    NG, G, LL = seq_l.shape
+    LR = seq_r.shape[2]
+    dev = seq_l.device
+    G2 = max(G, 16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def grow(x, extra):
+        pad = [0, 0] * (x.dim() - 2) + [0, G2 - G]
+        return torch.cat([torch.nn.functional.pad(x, pad), extra])
+    rnd = lambda L: torch.randint(65, 69, (64, G2, L), generator=gen,
+                                  device=dev, dtype=torch.uint8)
+    full = lambda L: torch.full((64, G2), L, dtype=torch.int32, device=dev)
+    args = (grow(seq_l, rnd(LL)), grow(len_l, full(LL)),
+            grow(seq_r, rnd(LR)), grow(len_r, full(LR)),
+            torch.cat([n_reads, torch.full((64,), G2, dtype=torch.int32,
+                                           device=dev)]), num, den)
+    got = cs.consensus_scan_groups(*args, max_slots=8)
+    want = cs.consensus_scan_plain(*args, max_slots=8)
+    torch.cuda.synchronize()
+    err = _max_abs_err([(got[k], want[k]) for k in want])
+    ms = _cuda_ms(lambda: cs.consensus_scan_groups(*args, max_slots=8), 3)
+    plain_ms = _cuda_ms(lambda: cs.consensus_scan_plain(*args, max_slots=8),
+                        1)
+    n_over = int(want["overflow"].sum())
+    shape = (f"the SPMD run's first call NG={NG} G={G} LL={LL} LR={LR} "
+             f"(max_slots {kw.get('max_slots')}) + 64 random groups, "
+             f"G {G2}, max_slots 8")
+    _say(f"consensus_scan: {shape}: {n_over} groups overflow, "
+         f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if err or n_over < 64:
+        raise AssertionError("consensus_scan disagrees with its plain "
+                             "version or the overflow groups did not")
+    rows["consensus_scan"] = {
+        "route": "cuda", "source": "seeksv_tpu_torch/csrc/consensus_scan.cu",
+        "replaces": "seeksv_tpu/ops/consensus_scan.py:31",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "ms_of": f"one launch, {shape}"}
+
+
+def check_discordant_count(kept, rows):
+    """K6 against its plain version on the SPMD run's first discordant
+    call (padding rows are empty windows)."""
+    import torch
+
+    from seeksv_tpu_torch.ops import discordant as dc
+    args, kw = kept
+    J = args[8].shape[0]
+    empty = int((args[9] <= args[8]).sum())
+    got = dc.discordant_count_batch(*args, **kw)
+    want = dc.discordant_count_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = _max_abs_err([(got, want)])
+    ms = _cuda_ms(lambda: dc.discordant_count_batch(*args, **kw), 3)
+    plain_ms = _cuda_ms(lambda: dc.discordant_count_plain(*args, **kw), 1)
+    shape = (f"the SPMD run's call J={J} ({empty} empty windows) over "
+             f"R={args[0].shape[0]} records, window_cap={kw['window_cap']}")
+    _say(f"discordant_count: {shape}: {int(want.sum())} pairs, "
+         f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if err or not int(want.sum()):
+        raise AssertionError("discordant_count disagrees with its plain "
+                             "version or counts nothing")
+    rows["discordant_count"] = {
+        "route": "cuda", "source": "seeksv_tpu_torch/csrc/discordant_count.cu",
+        "replaces": "seeksv_tpu/ops/jax_kernels.py:165",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "ms_of": f"one launch, {shape}"}
+
+
 # the kernels each run of the slice must launch (and no others)
+SPMD = ("extend_windows", "banded_dir", "traceback", "consensus_scan",
+        "discordant_count")
 EXPECTED = {
     "device": ("extend_left", "extend_right", "banded_dir", "traceback"),
     "device_seed": ("seed_lookup", "extend_left", "extend_right",
@@ -352,26 +449,32 @@ EXPECTED = {
                      "traceback"),
     "stream_device_align": ("seed_lookup", "extend_windows", "banded_dir",
                             "traceback"),
+    "spmd": SPMD,
+    "stream_spmd": SPMD,
 }
 
 
 def _counters():
+    """(the launch counters of every kernel, the hit_cap counters)."""
+    from seeksv_tpu_torch.ops import consensus_scan as cs
+    from seeksv_tpu_torch.ops import discordant as dc
     from seeksv_tpu_torch.ops import extend as ext
     from seeksv_tpu_torch.ops import global_device as gd
     from seeksv_tpu_torch.ops import seed_device as sd
-    return (ext.LAUNCHES, gd.LAUNCHES, sd.LAUNCHES, sd.OVERFLOW)
+    return (ext.LAUNCHES, gd.LAUNCHES, sd.LAUNCHES, cs.LAUNCHES,
+            dc.LAUNCHES), sd.OVERFLOW
 
 
 def _drive(name, fn):
     """Run fn with every counter at 0 just before; return its result and
     the launches it made; fail unless they are exactly EXPECTED[name]."""
-    counts = _counters()
-    for c in counts:
+    launch_counts, overflow_count = _counters()
+    for c in (*launch_counts, overflow_count):
         for key in c:
             c[key] = 0
     res = fn()
-    launches = {k: v for c in counts[:3] for k, v in c.items()}
-    overflow = dict(counts[3])
+    launches = {k: v for c in launch_counts for k, v in c.items()}
+    overflow = dict(overflow_count)
     _say(f"slice {name}: launches {json.dumps(launches)} hit_cap "
          f"{json.dumps(overflow)}")
     want = EXPECTED[name]
@@ -383,6 +486,39 @@ def _drive(name, fn):
         raise AssertionError(f"slice {name}: {overflow['to_host']} chunk(s) "
                              "overflowed to host seeding")
     return res, launches
+
+
+def run_spmd(dev, ref, bam, out, index, rows, drive):
+    """The SPMD pipeline and its streaming form on a one-rank NCCL mesh;
+    K5 and K6 held against their plain versions on the inputs of the
+    SPMD run's first consensus and discordant calls."""
+    import torch.distributed as dist
+
+    from seeksv_tpu_torch.parallel import spmd_pipeline as sp
+    from seeksv_tpu_torch.parallel.mesh import make_mesh
+    from seeksv_tpu_torch.parallel.stream_spmd import \
+        spmd_run_pipeline_streaming
+    mesh = make_mesh(dev)
+    _say(f"spmd: mesh {mesh}")
+    kept = {}
+    try:
+        undo = [_keep_first_call(sp, name, kept) for name in
+                ("consensus_scan_groups", "discordant_count_batch")]
+        try:
+            drive("spmd", lambda: sp.spmd_run_pipeline(
+                mesh, ref, bam, os.path.join(out, "spmd"), index=index,
+                log=lambda m: _say(f"  spmd: {m}")))
+        finally:
+            for u in undo:
+                u()
+        drive("stream_spmd", lambda: spmd_run_pipeline_streaming(
+            mesh, ref, bam, os.path.join(out, "stream_spmd"),
+            mesh_consensus=True, chunk_records=400_000, index=index,
+            log=lambda m: _say(f"  stream_spmd: {m}")))
+        check_consensus_scan(kept["consensus_scan_groups"], rows)
+        check_discordant_count(kept["discordant_count_batch"], rows)
+    finally:
+        dist.destroy_process_group()
 
 
 def run_slice(dev, workdir, card, rows):
@@ -424,6 +560,7 @@ def run_slice(dev, workdir, card, rows):
     drive("stream_device_align", lambda: run_pipeline_streaming(
         ref, bam, os.path.join(out, "stream_device_align"), device=dev,
         index=index, device_align=True, chunk_records=400_000))
+    run_spmd(dev, ref, bam, out, index, rows, drive)
     runs["force_host"] = run_pipeline(ref, bam, os.path.join(out, "host"),
                                       device=dev, force_host=True,
                                       index=index)

@@ -16,6 +16,11 @@ are inherited unchanged; what differs is where the two device steps run:
   seeding, window gather, both rounds on K1w), then the finalize.  A
   chunk whose hits overflow the largest hit_cap is seeded on the host, as
   the reference does, and counted in ``ops.seed_device.OVERFLOW``.
+- with ``shard_mesh`` set (a ``parallel.mesh.make_mesh`` mesh, as the SPMD
+  pipeline sets it) the two rounds run on the mesh instead: windows cut
+  on the host, each rank extending its block of jobs through K1w
+  (``ops.extend.extend_batch``), results all-gathered.  Every rank must
+  call ``batch_align`` with the same reads.
 
 Dispatch: no H100 crossover has been measured yet, so every extension
 batch and every eligible finalize job goes to the device (crossover 0,
@@ -253,6 +258,8 @@ class TorchBatchAligner(BatchAligner):
         }
         if use_host:
             run = self._host_round(idx, LT)
+        elif self.shard_mesh is not None:
+            run = self._mesh_round(LQ, LT)
         else:
             run = self._device_round(LQ, LT)
         t_ext = time.perf_counter()
@@ -301,8 +308,61 @@ class TorchBatchAligner(BatchAligner):
             return {k: v.cpu().numpy() for k, v in res.items()}
         return run
 
+    def _mesh_round(self, LQ: int, LT: int):
+        """The extension on the shard mesh (engine.py:690-702 and
+        :710-751): no resident genome; target windows are cut on the
+        host, the rows padded to a multiple of the mesh size, each rank
+        extends its contiguous block with K1w (``ops.extend.
+        extend_batch``) and the five result vectors are all-gathered, so
+        every rank holds every job's result."""
+        from ..ops.extend import KEYS, extend_batch
+        from ..parallel.mesh import agree, all_gather, shard_index
+        mesh = self.shard_mesh
+        idx = self.idx
+        ndev = mesh.size()
+        me = shard_index(mesh)
+
+        def run(q, qlen, tstart, tlen, h0, reverse):
+            n_jobs = len(q)
+            per = -(-agree(mesh, [n_jobs])[0] // ndev)
+            a, b = min(me * per, n_jobs), min((me + 1) * per, n_jobs)
+
+            def block(x, fill=0):
+                # this rank's rows, padded with empty jobs (qlen = tlen = 0)
+                out = np.full((per, *x.shape[1:]), fill, x.dtype)
+                out[:b - a] = x[a:b]
+                return self._put(out)
+
+            t = np.full((per, LT), 4, np.uint8)
+            t[:b - a] = self._cut_windows(idx, tstart[a:b], tlen[a:b], LT,
+                                          reverse)
+            res = extend_batch(block(q, 4), block(qlen), self._put(t),
+                               block(tlen), block(h0))
+            mine = torch.stack([res[k] for k in KEYS])[None]   # [1, 5, per]
+            got = all_gather(mesh, mine).permute(1, 0, 2).reshape(5, -1)
+            got = got[:, :n_jobs].cpu().numpy()
+            return dict(zip(KEYS, got))
+        return run
+
     @staticmethod
-    def _host_round(idx, LT: int):
+    def _cut_windows(idx, tstart, tlen, LT: int,
+                     reverse: bool) -> np.ndarray:
+        """[B, LT] uint8 target windows cut from the genome on the host:
+        element k is genome position tstart -/+ k (left windows walk
+        back), code 4 at k >= tlen."""
+        t = np.full((len(tstart), LT), 4, np.uint8)
+        for k in range(len(tstart)):
+            s, ln = int(tstart[k]), int(tlen[k])
+            if ln <= 0:
+                continue
+            if reverse:
+                t[k, :ln] = idx.ref[s - ln + 1:s + 1][::-1]
+            else:
+                t[k, :ln] = idx.ref[s:s + ln]
+        return t
+
+    @classmethod
+    def _host_round(cls, idx, LT: int):
         """The reference's host path: windows cut from the genome on the
         host, native C++ kernel when built, numpy mirror otherwise."""
         from seeksv_tpu.io import native
@@ -312,16 +372,8 @@ class TorchBatchAligner(BatchAligner):
             from seeksv_tpu.align.sw import extend_batch_np as kernel
 
         def run(q, qlen, tstart, tlen, h0, reverse):
-            t = np.full((len(q), LT), 4, np.int8)
-            for k in range(len(q)):
-                s, ln = int(tstart[k]), int(tlen[k])
-                if ln <= 0:
-                    continue
-                if reverse:
-                    t[k, :ln] = idx.ref[s - ln + 1:s + 1][::-1]
-                else:
-                    t[k, :ln] = idx.ref[s:s + ln]
-            return kernel(q.view(np.int8), qlen, t, tlen, h0)
+            t = cls._cut_windows(idx, tstart, tlen, LT, reverse)
+            return kernel(q.view(np.int8), qlen, t.view(np.int8), tlen, h0)
         return run
 
     def _device_finalize_plan(self, qs, ts, force_device: bool):

@@ -234,6 +234,84 @@ def test_slice_on_cuda_matches_force_host(cuda, tmp_path):
             (tmp_path / f"host.{suffix}").read_bytes(), suffix
 
 
+@pytest.mark.parametrize("S", [2, 8, 64])
+def test_consensus_scan_matches_plain(cuda, S):
+    """K5 against its plain version: groups of noisy copies of three
+    templates with empty sides; S = 2 and 8 overflow, 64 does not."""
+    from seeksv_tpu_torch.ops import consensus_scan as cs
+    from torch_inputs import CONSENSUS_KEYS as KEYS
+    from torch_inputs import random_groups
+    arrays = [torch.from_numpy(a).to(cuda)
+              for a in random_groups(S, NG=500, G=40, LL=300, LR=280)]
+    n0 = cs.LAUNCHES["consensus_scan"]
+    got = cs.consensus_scan_groups(*arrays, 17, 20, max_slots=S)
+    want = cs.consensus_scan_plain(*arrays, 17, 20, max_slots=S)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["consensus_scan"] == n0 + 1
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k
+    assert bool(want["overflow"].any()) == (S < 64)
+    assert int(want["support"].max()) > 1
+
+
+@pytest.mark.parametrize("window_cap", [64, 512])
+def test_discordant_count_matches_plain(cuda, window_cap):
+    """K6 against its plain version: every case, tandem junctions, capped
+    and empty windows."""
+    from seeksv_tpu_torch.ops import discordant as dc
+    from torch_inputs import discordant_args, discordant_windows
+    rec, jun = discordant_windows(window_cap, R=20_000, J=3_000)
+    ra, ja = ([torch.from_numpy(x).to(cuda) for x in a]
+              for a in discordant_args(rec, jun))
+    n0 = dc.LAUNCHES["discordant_count"]
+    got = dc.discordant_count_batch(*ra, *ja, window_cap=window_cap)
+    want = dc.discordant_count_plain(*ra, *ja, window_cap=window_cap)
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES["discordant_count"] == n0 + 1
+    assert torch.equal(got, want)
+    assert int(got.sum()) > 0
+    assert int(got[:8].abs().sum()) == 0          # empty windows
+
+
+def test_spmd_on_one_rank_nccl_matches_force_host(cuda, tmp_path):
+    """spmd_run_pipeline on a one-rank NCCL mesh: byte-identical to the
+    native host path, through K1w, K2/K3, K5 and K6 (no resident
+    extension)."""
+    import gzip
+
+    import torch.distributed as dist
+
+    from seeksv_tpu_torch.ops import consensus_scan as cs
+    from seeksv_tpu_torch.ops import discordant as dc
+    from seeksv_tpu_torch.parallel.mesh import make_mesh
+    from seeksv_tpu_torch.parallel.spmd_pipeline import spmd_run_pipeline
+    from seeksv_tpu_torch.pipeline.driver import run_pipeline
+    p = _small_dataset(tmp_path)
+    created = not dist.is_initialized()
+    mesh = make_mesh("cuda")
+    try:
+        _reset(ext.LAUNCHES, tgd.LAUNCHES, tsd.LAUNCHES, cs.LAUNCHES,
+               dc.LAUNCHES)
+        spmd_run_pipeline(mesh, p["ref_fa"], p["bam"], str(tmp_path / "dev"))
+        counts = {**ext.LAUNCHES, **tgd.LAUNCHES, **tsd.LAUNCHES,
+                  **cs.LAUNCHES, **dc.LAUNCHES}
+    finally:
+        if created:
+            dist.destroy_process_group()
+    run_pipeline(p["ref_fa"], p["bam"], str(tmp_path / "host"),
+                 device="cuda", force_host=True)
+    used = ("extend_windows", "banded_dir", "traceback", "consensus_scan",
+            "discordant_count")
+    assert min(counts[k] for k in used) > 0, counts
+    assert all(v == 0 for k, v in counts.items() if k not in used), counts
+    for suffix in ("clip.sam", "sv"):
+        assert (tmp_path / f"dev.{suffix}").read_bytes() == \
+            (tmp_path / f"host.{suffix}").read_bytes(), suffix
+    with gzip.open(tmp_path / "dev.clip.gz") as a, \
+            gzip.open(tmp_path / "host.clip.gz") as b:
+        assert a.read() == b.read()
+
+
 @pytest.mark.parametrize("flag", ["device_align", "device_seed"])
 def test_front_end_on_cuda_matches_force_host(cuda, tmp_path, flag):
     """The same run with a device front-end: device_align through K4, K1w
