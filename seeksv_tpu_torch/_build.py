@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and build its native host
+library (``build_native``, loaded by ``io/native.py``).
 
 Every ``seeksv_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
 Hopper (``sm_90a``), one compiler process per source, all started
@@ -18,6 +19,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -30,12 +32,18 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v"]
 LIB_NAME = "libseeksv_tpu_torch_kernels.so"
+# the native host library: the repo's C++ source, flags as csrc/Makefile
+NATIVE_SRC = os.path.join(os.path.dirname(_PKG), "csrc", "seeksv_native.cpp")
+NATIVE_CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall"]
+NATIVE_LIB_NAME = "libseeksv_native.so"
 
 _lock = threading.RLock()
 _lib = None
 # filled by the first build: seconds spent in nvcc (0.0 when the library
 # was already built for these sources) and the compiler's output
 build_info = {"seconds": None, "log": "", "path": None}
+# the same for the native host library (build_native)
+native_info = {"seconds": None, "path": None, "libdeflate": None}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,11 +51,12 @@ _LL = ctypes.c_longlong
 # C signatures of the entry points (all return cudaError_t as int)
 _SIGNATURES = {
     # q4, qlen, tstart, tlen, h0, refp, n_codes, B, LQ, LT, reverse,
-    # out, stream
+    # order, seg, out, stream
     "seeksv_extend_resident": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
-                               _P, _P],
-    # q, qlen, t, tlen, h0, B, LQ, LT, out, stream
-    "seeksv_extend_windows": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+                               _P, _P, _P, _P],
+    # q, qlen, t, tlen, h0, B, LQ, LT, order, seg, out, stream
+    "seeksv_extend_windows": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                              _P],
     # mat, lens, N, LP, k, keys, n_keys, key_bits, prefix_tab, tab_size,
     # shift, max_occ, lo, cnt, stream
     "seeksv_seed_lookup": [_P, _P, _I, _I, _I, _P, _LL, _I, _P, _LL, _I, _I,
@@ -142,54 +151,94 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            handle.seeksv_extend_cells_per_thread.argtypes = [_I]
-            handle.seeksv_extend_cells_per_thread.restype = ctypes.c_int
+            handle.seeksv_extend_bins.argtypes = []
+            handle.seeksv_extend_bins.restype = ctypes.c_int
+            handle.seeksv_extend_bin_edge.argtypes = [_I]
+            handle.seeksv_extend_bin_edge.restype = ctypes.c_int
             handle.seeksv_cuda_error_string.argtypes = [_I]
             handle.seeksv_cuda_error_string.restype = ctypes.c_char_p
             _lib = handle
     return _lib
 
 
-def ensure_native() -> bool:
-    """Build the shared native host library (``csrc/libseeksv_native.so``,
-    through ``csrc/Makefile``) when it is missing or older than its
-    source, then report whether ``seeksv_tpu.io.native`` loads it.
+def _cpu_identity() -> str:
+    """What ``-march=native`` depends on: the machine and its CPU's
+    feature flags, so a library built on one host is not loaded on
+    another that lacks its instructions."""
+    ident = platform.machine()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return ident + line
+    except OSError:
+        pass
+    return ident
 
-    The Makefile's own libdeflate probe passes a backslash to the
-    preprocessor under GNU make >= 4.3 and so claims libdeflate wherever
-    a compiler exists; the build then fails on hosts without the header
-    and every host stage falls back to its slow numpy/python form.  Here
-    the header is probed directly and the result handed to make, and a
-    failed earlier load in this process is retried."""
-    from seeksv_tpu.io import native
-    csrc = os.path.join(os.path.dirname(_PKG), "csrc")
-    so = os.path.join(csrc, "libseeksv_native.so")
-    src = os.path.join(csrc, "seeksv_native.cpp")
-    fresh = os.path.exists(so) and (
-        not os.path.exists(src)
-        or os.path.getmtime(so) >= os.path.getmtime(src))
-    if not fresh and os.path.exists(src):
-        lock = os.path.join(csrc, ".build_lock")   # shared with native.py
+
+def build_native() -> str:
+    """Build the native host library (BAM decode, host extension and
+    finalize ladder, seeding, index build) from the repo's C++ source
+    ``csrc/seeksv_native.cpp`` with ``g++``, flags as ``csrc/Makefile``
+    has them, into ``build/seeksv_tpu_torch/native/<hash>/``, and return
+    the library's path.  Nothing is written beside the source.
+
+    ``-DUSE_LIBDEFLATE -ldeflate`` is added only where the preprocessor
+    finds ``libdeflate.h`` (the Makefile's own probe passes a backslash to
+    the preprocessor under GNU make >= 4.3 and so always says yes).  The
+    library lands by an atomic rename, so concurrent builds (test
+    workers) never see a torn file and need no lock.  Raises
+    RuntimeError when the source or the compiler is missing or the
+    build fails; ``io.native`` turns that into "not available"."""
+    with _lock:
+        if native_info["path"]:
+            return native_info["path"]
+        if not os.path.exists(NATIVE_SRC):
+            raise RuntimeError(f"native source not found: {NATIVE_SRC}")
+        cxx = os.environ.get("CXX", "g++")
+        with open(NATIVE_SRC, "rb") as f:
+            h = hashlib.sha256(f.read())
+        h.update(" ".join([cxx, *NATIVE_CXXFLAGS]).encode())
+        h.update(_cpu_identity().encode())
+        out_dir = os.path.join(BUILD_ROOT, "native", h.hexdigest()[:16])
+        lib_path = os.path.join(out_dir, NATIVE_LIB_NAME)
+        # what the header probe said when the library was built
+        probe_path = os.path.join(out_dir, "libdeflate")
+        if os.path.exists(lib_path) and os.path.exists(probe_path):
+            with open(probe_path) as f:
+                native_info.update(seconds=0.0, path=lib_path,
+                                   libdeflate=f.read().strip() == "yes")
+            return lib_path
+        t0 = time.perf_counter()
         try:
-            os.mkdir(lock)
-        except FileExistsError:
-            t0 = time.monotonic()
-            while os.path.exists(lock) and time.monotonic() - t0 < 300:
-                time.sleep(0.1)
-        else:
-            try:
-                probe = subprocess.run(
-                    [os.environ.get("CXX", "g++"), "-E", "-x", "c++", "-"],
-                    input="#include <libdeflate.h>\n", capture_output=True,
-                    text=True)
-                have = "1" if probe.returncode == 0 else "0"
-                subprocess.run(["make", "-s", f"HAVE_LIBDEFLATE={have}"],
-                               cwd=csrc, capture_output=True, timeout=300)
-            finally:
-                os.rmdir(lock)
-        if native._LIB is None:
-            native._TRIED = False   # a load attempted before the build
-    return native.available()
+            probe = subprocess.run(
+                [cxx, "-E", "-x", "c++", "-"],
+                input="#include <libdeflate.h>\n", capture_output=True,
+                text=True)
+        except OSError as exc:
+            raise RuntimeError(f"{cxx} not found: {exc}") from exc
+        deflate = probe.returncode == 0
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = os.path.join(out_dir, f".{NATIVE_LIB_NAME}.{os.getpid()}.tmp")
+        cmd = [cxx, *NATIVE_CXXFLAGS,
+               *(["-DUSE_LIBDEFLATE"] if deflate else []),
+               "-shared", "-o", tmp, NATIVE_SRC, "-lz", "-lpthread",
+               *(["-ldeflate"] if deflate else [])]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(f"native build failed (exit "
+                               f"{proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        with open(tmp + ".probe", "w") as f:
+            f.write("yes\n" if deflate else "no\n")
+        os.replace(tmp + ".probe", probe_path)   # before the library lands
+        os.replace(tmp, lib_path)
+        native_info.update(seconds=time.perf_counter() - t0, path=lib_path,
+                           libdeflate=deflate)
+        return lib_path
 
 
 def check(rc: int, name: str) -> None:

@@ -13,23 +13,50 @@
 // through pallas_extend_batch, which pads the batch to 128 lanes, a TPU
 // layout and not semantics (windows).
 //
-// What bounds it on the H100: latency of the row recurrence.  Each job
-// walks up to LT target rows in order, and every row needs an exact
-// prefix max over the query cells plus a first-occurrence argmax, so a
-// row is two block-wide barriers deep.  Device memory traffic is tiny
-// (the query once, one target byte per row, 5 ints out).
+// What bounds it on the H100: integer operations.  A job is qlen x rows
+// cells (rows: until tlen or z-drop ends it) that need nine int32
+// instructions each at the least, a fused add + max counted as one (two
+// more on the rows that raise the best, for the first-occurrence argmax),
+// and device memory traffic is tiny (the query once, one target
+// code per row, 5 ints out), so the least time is the cells' operations
+// over the card's 132 SMs x 64 int32 lanes.  What stands between a kernel
+// and that bound is (a) cells that do not exist (a block sized to the
+// batch's bucket LQ computes LQ cells a row whatever the job's qlen),
+// (b) per-row overhead that is not cell work (barriers, scans over shared
+// memory, serial reductions) on a chain of up to LT dependent rows, and
+// (c) instructions per cell.
 //
-// What the design does about it: one block per job, so the 132 SMs run
-// many independent jobs at once and hide each other's barrier latency.
-// The C query cells of a thread and their H/E values live in registers
-// (C = 4 at LQ 1024: 256 threads); the row's exclusive prefix max is a
-// per-thread scan, a warp-shuffle scan and a scan over at most 32 warp
-// totals in shared memory.  The resident target code is read straight
-// from the nibble-packed genome (code 4 off the genome), so no window
-// tensor is ever built.  A job stops as soon as it is inactive (i >= tlen
-// or z-dropped); the reference freezes it instead, which gives the same
-// result because inactivity never ends.  A job with tlen = 0 (most slots
-// of a device-front-end chunk) leaves before its first barrier.
+// What the design does about it:
+// - One warp per job, and the cells a lane holds (C = 4, 8, 16 or 32) come
+//   from the job's own qlen: jobs are binned by qlen on the device
+//   (ops/extend.py:plan_bins: qlen <= 128, 256, 512, 1024), each bin is
+//   one launch of the kernel compiled for its C, and inside a bin the jobs
+//   are ordered by falling qlen x tlen so that the longest start first.
+//   Every block finds its job through that order and writes its results
+//   at the job's own index.  A query longer than 1024 runs in the widest
+//   shape in several passes a row, its H and E rows kept in shared
+//   memory between passes.
+// - No block barrier and no shared array on the row chain: H, E and the
+//   packed query live in registers, the row's exclusive prefix max is a
+//   per-lane scan plus five shuffles, the row's best and its first
+//   occurrence are two warp reductions (redux.sync), the latter only on
+//   rows that improve the best.  18,000 independent jobs are far more
+//   than the warps the card holds at once, so other jobs hide a row's
+//   latency.
+// - DPX (__viaddmax_s32) for the max(a + b, c) chains: E, max(diag, E),
+//   both prefix-max scans.
+// - Loads: a lane fetches the target codes of 32 rows at once (one
+//   coalesced load every 32 rows) and the row's code is broadcast by
+//   shuffle; the query is read once, 8 nibble codes a register.  The
+//   resident target code comes straight from the nibble-packed genome
+//   (code 4 off the genome), so no window tensor is ever built.
+// - Cells past qlen are computed only up to the end of the lane's C
+//   cells and masked out of the row's best; nothing flows from them into
+//   a cell that exists (the recurrence reads left, up and up-left).
+// A job stops as soon as it is inactive (i >= tlen or z-dropped); the
+// reference freezes it instead, which gives the same result because
+// inactivity never ends.  A job with tlen = 0 or qlen = 0 (most slots of a
+// device-front-end chunk) writes its result and leaves at once.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,10 +71,16 @@ constexpr int kNegInf = -0x10000000;  // pallas_sw.NEG_INF
 constexpr int kZdrop = 100;
 constexpr int kBig = 0x7FFFFFFF;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ int sub_score(int qc, int tc) {
-  return (qc > 3 || tc > 3) ? kAmbig : (qc == tc ? kMatch : -kMismatch);
-}
+// The bins' upper query lengths, 32 lanes x C cells each; a longer query
+// runs in the widest shape in several passes.  ops/extend.py's BIN_EDGES
+// must say the same (it asks seeksv_extend_bin_edge).
+constexpr int kEdges[] = {128, 256, 512, 1024};
+constexpr int kBins = sizeof(kEdges) / sizeof(kEdges[0]) + 1;
+constexpr int kWidest = kEdges[kBins - 2] / 32;  // cells a lane, widest shape
+static_assert(kBins == 5 && kEdges[0] == 32 * 4 && kEdges[1] == 32 * 8 &&
+                  kEdges[2] == 32 * 16 && kEdges[3] == 32 * 32,
+              "launch() instantiates C = 4, 8, 16, 32");
+static_assert(kGapExt == 1, "the lane-relative prefix max assumes 1");
 
 // Where a job's codes come from.  Resident: q is the nibble-packed query
 // [B, ceil(LQ/2)], t the nibble-packed genome of n_codes codes, and
@@ -62,14 +95,27 @@ struct Codes {
   long long n_codes;
   int LQ, LT, reverse;
 
-  // query code at 1-based cell j of job b
-  __device__ __forceinline__ int query(int b, int j) const {
-    if constexpr (kWindows) return q[(size_t)b * LQ + (j - 1)];
-    const uint8_t byte = q[(size_t)b * ((LQ + 1) >> 1) + ((j - 1) >> 1)];
-    return ((j - 1) & 1) ? (byte >> 4) : (byte & 0xF);
+  // The 8 query codes from 0-based cell c0 (a multiple of 4; of 8 unless
+  // only 4 are asked for) of job b as nibbles, cell c0 lowest; code 4
+  // past LQ.  n = 4 fills the low half only.
+  __device__ __forceinline__ uint32_t query8(int b, int c0, int n) const {
+    if (c0 >= LQ) return 0x44444444u;
+    if constexpr (kWindows) {
+      const uint8_t* p = q + (size_t)b * LQ + c0;
+      uint32_t w = 0;
+      for (int k = 0; k < n; ++k) {
+        const uint32_t c = (c0 + k < LQ) ? p[k] : 4u;
+        w |= (c > 3u ? 4u : c) << (4 * k);
+      }
+      return w;
+    } else {
+      const uint8_t* p = q + (size_t)b * ((LQ + 1) >> 1) + (c0 >> 1);
+      if (n == 4) return *reinterpret_cast<const uint16_t*>(p);
+      return *reinterpret_cast<const uint32_t*>(p);
+    }
   }
 
-  // target code at 0-based row i of job b
+  // target code at 0-based row i of job b (the caller keeps i < LT)
   __device__ __forceinline__ int target(int b, int i) const {
     if constexpr (kWindows) return t[(size_t)b * LT + i];
     const long long start = tstart[b];
@@ -80,140 +126,174 @@ struct Codes {
   }
 };
 
-// blockDim.x = LQ / C threads (a multiple of 32, at most 1024); thread t
-// owns query cells j = t*C + 1 .. t*C + C (1-based).
-template <int C, bool kWindows>
-__global__ void extend_kernel(Codes<kWindows> src,
-                              const int* __restrict__ qlen,
-                              const int* __restrict__ tlen,
-                              const int* __restrict__ h0, int B,
-                              int* __restrict__ out) {
-  __shared__ int s_bound[32];  // last H of each warp, previous row
-  __shared__ int s_tot[32];    // warp totals of the prefix-max input
-  __shared__ int s_best[32];
-  __shared__ int s_arg[32];
-  __shared__ int s_hq;         // H at j == qlen
+// One warp (one block of 32 threads) per job.  Block x of the launch for
+// bin `which` takes the job order[seg[which] + x] if that slot is below
+// seg[which + 1], else leaves.  Lane l of pass p owns the C query cells
+// j = (p * 32 + l) * C + 1 .. + C (1-based).  kMulti: the job's cells
+// take several passes a row (qlen > 32 * C) and H, E and the query words
+// of the passes live in dynamic shared memory, [pass][k][lane].
+template <int C, bool kWindows, bool kMulti>
+__global__ void __launch_bounds__(32)
+extend_kernel(Codes<kWindows> src, const int* __restrict__ qlen,
+              const int* __restrict__ tlen, const int* __restrict__ h0,
+              const int* __restrict__ order, const int* __restrict__ seg,
+              int which, int B, int* __restrict__ out) {
+  constexpr int W = (C + 7) / 8;  // query words a lane
+  extern __shared__ int smem[];
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int m = qlen[b];
+  const int slot = seg[which] + blockIdx.x;
+  if (slot >= seg[which + 1]) return;
+  const int b = order[slot];
+  const int lane = threadIdx.x;
+  // A qlen past the bucket LQ has LQ cells and no cell "qlen": its gscore
+  // stays NEG_INF, as in the plain version.
+  const bool past_lq = qlen[b] > src.LQ;
+  const int m = min(qlen[b], src.LQ);
   const int tl = tlen[b];
   const int hz = h0[b];
-  const int j0 = tid * C + 1;
-  if (tl <= 0 || src.LT <= 0) {  // no target row: the initial state is final
-    if (tid == 0) {
+  const int nrow = min(tl, src.LT);
+  if (nrow <= 0 || m <= 0) {
+    // no target row: the initial state is final.  No query cell: the
+    // first row's best is NEG_INF, which z-drops, and H at "qlen" is
+    // column 0 of that row.
+    if (lane == 0) {
+      const bool row = nrow > 0 && hz - kGapOpen - kGapExt > kNegInf;
       out[b] = hz;
       out[B + b] = 0;
       out[2 * B + b] = 0;
-      out[3 * B + b] = kNegInf;
-      out[4 * B + b] = 0;
+      out[3 * B + b] = row ? hz - kGapOpen - kGapExt : kNegInf;
+      out[4 * B + b] = row ? 1 : 0;
     }
-    return;  // uniform across the block: before any barrier
+    return;
+  }
+  const int npass = kMulti ? (m + 32 * C - 1) / (32 * C) : 1;
+  const int lane_m = ((m - 1) % (32 * C)) / C;  // lane of cell m, last pass
+  int* const hs = smem;                     // [npass][C][32]
+  int* const es = hs + npass * C * 32;      // [npass][C][32]
+  uint32_t* const qs = reinterpret_cast<uint32_t*>(es + npass * C * 32);
+
+  int h[C], e[C];
+  uint32_t qw[W];
+  for (int p = 0; p < npass; ++p) {
+    const int jb = (p * 32 + lane) * C;  // cell k of the lane is j = jb+1+k
+#pragma unroll
+    for (int w = 0; w < W; ++w) qw[w] = src.query8(b, jb + 8 * w, C < 8 ? C : 8);
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = jb + 1 + k;
+      const int row0 = hz - kGapOpen - j * kGapExt;
+      h[k] = (row0 >= 0 && j <= m) ? row0 : kNegInf;
+      e[k] = kNegInf;
+    }
+    if constexpr (kMulti) {
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        hs[(p * C + k) * 32 + lane] = h[k];
+        es[(p * C + k) * 32 + lane] = e[k];
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w) qs[(p * W + w) * 32 + lane] = qw[w];
+    }
   }
 
-  int qc[C], h[C], e[C], g[C], u_inc[C];
-#pragma unroll
-  for (int k = 0; k < C; ++k) {
-    const int j = j0 + k;
-    qc[k] = src.query(b, j);
-    const int row0 = hz - kGapOpen - j * kGapExt;
-    h[k] = (row0 >= 0 && j <= m) ? row0 : kNegInf;
-    e[k] = kNegInf;
-  }
   int h_first = hz;  // H[i-1][0] seen from row i
   int best = hz, qle = 0, tle = 0, gscore = kNegInf, gtle = 0;
-  if (lane == 31) s_bound[warp] = h[C - 1];
-  __syncthreads();
+  int tvec = 4;
+  for (int i = 0; i < nrow; ++i) {
+    if ((i & 31) == 0) tvec = (i + lane < nrow) ? src.target(b, i + lane) : 4;
+    const int tc = __shfl_sync(kFull, tvec, i & 31);
+    const int tcm = tc > 3 ? 99 : tc;  // an ambiguous target matches nothing
+    const int mis = tc > 3 ? kAmbig : -kMismatch;
 
-  for (int i = 0; i < src.LT && i < tl; ++i) {
-    const int tc = src.target(b, i);
-    // H[i-1][j-1] for the first cell: the left neighbour's last cell
-    int left = __shfl_up_sync(kFull, h[C - 1], 1);
-    if (lane == 0) left = (warp == 0) ? h_first : s_bound[warp - 1];
-
-    int prev_h = left;
-    int run = kNegInf;
+    int carry = kNegInf;   // prefix max of g + j over the passes before
+    int diag_in = h_first; // H[i-1][j-1] for the pass's first cell
+    int rb = kNegInf, ra = kBig, hq = kNegInf;
+    for (int p = 0; p < npass; ++p) {
+      const int jb = (p * 32 + lane) * C;
+      if constexpr (kMulti) {
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const int j = j0 + k;
-      const int diag = prev_h + sub_score(qc[k], tc);
-      prev_h = h[k];
-      const int ec = max(h[k] - kGapOpen, e[k]) - kGapExt;
-      e[k] = ec;
-      g[k] = max(diag, ec);
-      run = max(run, g[k] + j * kGapExt);
-      u_inc[k] = run;
-    }
-    // exclusive prefix max of the thread totals across the block
-    int incl = run;
+        for (int k = 0; k < C; ++k) {
+          h[k] = hs[(p * C + k) * 32 + lane];
+          e[k] = es[(p * C + k) * 32 + lane];
+        }
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl = max(incl, v);
-    }
-    int carry = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) carry = kNegInf;
-    if (lane == 31) s_tot[warp] = incl;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) carry = max(carry, s_tot[w]);
-
-    int rb = kNegInf, ra = kBig;
-#pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const int j = j0 + k;
-      const int pref = (k == 0) ? carry : max(carry, u_inc[k - 1]);
-      const int f = pref - kGapOpen - j * kGapExt;
-      const bool valid = j <= m;
-      const int hr = valid ? max(g[k], f) : kNegInf;
-      h[k] = hr;
-      if (!valid) e[k] = kNegInf;
-      if (hr > rb) {  // strict: first occurrence within the thread
-        rb = hr;
-        ra = j;
+        for (int w = 0; w < W; ++w) qw[w] = qs[(p * W + w) * 32 + lane];
       }
-      if (j == m) s_hq = hr;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const int ob = __shfl_down_sync(kFull, rb, o);
-      const int oa = __shfl_down_sync(kFull, ra, o);
-      if (ob > rb || (ob == rb && oa < ra)) {
-        rb = ob;
-        ra = oa;
-      }
-    }
-    if (lane == 0) {
-      s_best[warp] = rb;
-      s_arg[warp] = ra;
-    }
-    if (lane == 31) s_bound[warp] = h[C - 1];
-    __syncthreads();
+      int prev = __shfl_up_sync(kFull, h[C - 1], 1);
+      if (lane == 0) prev = diag_in;
+      if constexpr (kMulti) diag_in = __shfl_sync(kFull, h[C - 1], 31);
 
-    int row_best = s_best[0], row_arg = s_arg[0];
-    for (int w = 1; w < nwarps; ++w) {
-      if (s_best[w] > row_best) {  // warps hold ascending j
-        row_best = s_best[w];
-        row_arg = s_arg[w];
+      // g = max(diag, E) into h[k]; run = max over the lane of g + k
+      int run = kNegInf;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int qc = (qw[k >> 3] >> (4 * (k & 7))) & 0xF;
+        const int s = (qc == tcm) ? kMatch : (qc > 3 ? kAmbig : mis);
+        const int ec = __viaddmax_s32(h[k], -kGapOpen, e[k]) - kGapExt;
+        const int g = __viaddmax_s32(prev, s, ec);
+        prev = h[k];
+        e[k] = ec;
+        h[k] = g;
+        run = __viaddmax_s32(g, k, run);
+      }
+      // exclusive prefix max of g + j across the lanes (and the passes)
+      int incl = run + jb + 1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        // a lane below o gets its own value back: max leaves it as it is
+        incl = max(incl, __shfl_up_sync(kFull, incl, o));
+      }
+      int excl = __shfl_up_sync(kFull, incl, 1);
+      if (lane == 0) excl = kNegInf;
+      excl = max(excl, carry);
+      if constexpr (kMulti) carry = max(carry, __shfl_sync(kFull, incl, 31));
+
+      // H = max(g, F), F from the prefix max; the lane's best over the
+      // cells that exist (k < nv), first occurrence
+      int run2 = excl - (jb + 1);
+      const int nv = m - jb;
+      int rbc = kNegInf, rak = 0;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int f = run2 - (kGapOpen + k);
+        const int hr = max(h[k], f);
+        run2 = __viaddmax_s32(h[k], k, run2);
+        h[k] = hr;
+        const bool valid = k < nv;
+        const int hm = valid ? hr : kNegInf;
+        hq = valid ? hr : hq;
+        const bool keep = rbc >= hm;  // strict: first occurrence
+        rbc = max(rbc, hm);
+        rak = keep ? rak : k;
+      }
+      if (rbc > rb) {  // passes hold ascending j
+        rb = rbc;
+        ra = jb + 1 + rak;
+      }
+      if constexpr (kMulti) {
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+          hs[(p * C + k) * 32 + lane] = h[k];
+          es[(p * C + k) * 32 + lane] = e[k];
+        }
       }
     }
-    const int h0_col = hz - kGapOpen - (i + 1) * kGapExt;
-    const int h_at_qlen = (m == 0) ? h0_col : s_hq;
+
+    const int row_best = __reduce_max_sync(kFull, rb);
+    const int h_at_qlen = __shfl_sync(kFull, hq, lane_m);
     if (row_best > best) {
       best = row_best;
-      qle = row_arg;
+      qle = __reduce_min_sync(kFull, rb == row_best ? ra : kBig);
       tle = i + 1;
     }
-    if (h_at_qlen > gscore) {
+    if (h_at_qlen > gscore && !past_lq) {
       gscore = h_at_qlen;
       gtle = i + 1;
     }
-    h_first = h0_col;
+    h_first = hz - kGapOpen - (i + 1) * kGapExt;
     if (row_best < best - kZdrop) break;  // z-drop: the job is frozen
   }
-  if (tid == 0) {
+  if (lane == 0) {
     out[b] = best;
     out[B + b] = qle;
     out[2 * B + b] = tle;
@@ -222,64 +302,83 @@ __global__ void extend_kernel(Codes<kWindows> src,
   }
 }
 
-template <int C, bool kWindows>
-cudaError_t launch_c(Codes<kWindows> src, const int* qlen, const int* tlen,
-                     const int* h0, int B, int* out, cudaStream_t stream) {
-  extend_kernel<C, kWindows><<<B, src.LQ / C, 0, stream>>>(src, qlen, tlen,
-                                                            h0, B, out);
+template <int C, bool kWindows, bool kMulti>
+cudaError_t launch_bin(Codes<kWindows> src, const int* qlen, const int* tlen,
+                       const int* h0, const int* order, const int* seg,
+                       int which, int B, int* out, cudaStream_t stream) {
+  size_t shared = 0;
+  if (kMulti) {
+    // H, E and the query words of every pass of the longest query
+    const int npass = (src.LQ + 32 * C - 1) / (32 * C);
+    shared = (size_t)npass * 32 * (2 * C + (C + 7) / 8) * sizeof(int);
+    const cudaError_t rc = cudaFuncSetAttribute(
+        extend_kernel<C, kWindows, kMulti>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (rc != cudaSuccess) return rc;
+  }
+  extend_kernel<C, kWindows, kMulti><<<B, 32, shared, stream>>>(
+      src, qlen, tlen, h0, order, seg, which, B, out);
   return cudaGetLastError();
 }
 
-// Cells per thread for a query bucket LQ: the smallest power of two that
-// keeps the block at <= 256 threads (<= 1024 for very long queries) with
-// a whole number of warps.  0 when no such choice exists.
-int cells_per_thread(int LQ) {
-  for (int limit = 256; limit <= 1024; limit *= 4) {
-    for (int c = 1; c <= 16; c *= 2) {
-      if (LQ % (32 * c) == 0 && LQ / c <= limit) return c;
-    }
-  }
-  return 0;
-}
-
+// One launch per bin that a query of the bucket LQ can fall into, widest
+// first (order holds the bins in that order: seg[0] is the bin of queries
+// past 1024, seg[4] the bin of qlen <= 128).
 template <bool kWindows>
 cudaError_t launch(Codes<kWindows> src, const int* qlen, const int* tlen,
-                   const int* h0, int B, int* out, cudaStream_t stream) {
-  switch (cells_per_thread(src.LQ)) {
-    case 1: return launch_c<1>(src, qlen, tlen, h0, B, out, stream);
-    case 2: return launch_c<2>(src, qlen, tlen, h0, B, out, stream);
-    case 4: return launch_c<4>(src, qlen, tlen, h0, B, out, stream);
-    case 8: return launch_c<8>(src, qlen, tlen, h0, B, out, stream);
-    case 16: return launch_c<16>(src, qlen, tlen, h0, B, out, stream);
-    default: return cudaErrorInvalidValue;
-  }
+                   const int* h0, const int* order, const int* seg, int B,
+                   int* out, cudaStream_t stream) {
+  cudaError_t rc = cudaSuccess;
+  if (src.LQ > kEdges[3])
+    rc = launch_bin<kWidest, kWindows, true>(src, qlen, tlen, h0, order, seg,
+                                             0, B, out, stream);
+  if (rc == cudaSuccess && src.LQ > kEdges[2])
+    rc = launch_bin<32, kWindows, false>(src, qlen, tlen, h0, order, seg, 1,
+                                         B, out, stream);
+  if (rc == cudaSuccess && src.LQ > kEdges[1])
+    rc = launch_bin<16, kWindows, false>(src, qlen, tlen, h0, order, seg, 2,
+                                         B, out, stream);
+  if (rc == cudaSuccess && src.LQ > kEdges[0])
+    rc = launch_bin<8, kWindows, false>(src, qlen, tlen, h0, order, seg, 3,
+                                        B, out, stream);
+  if (rc == cudaSuccess)
+    rc = launch_bin<4, kWindows, false>(src, qlen, tlen, h0, order, seg, 4, B,
+                                        out, stream);
+  return rc;
 }
 
 }  // namespace
 
-extern "C" int seeksv_extend_cells_per_thread(int LQ) {
-  return cells_per_thread(LQ);
+// The number of bins `order` and `seg` (kBins + 1 offsets) must describe.
+extern "C" int seeksv_extend_bins() { return kBins; }
+
+// The upper query length of bin i (0 the narrowest), -1 for the last bin
+// (longer queries) and out of range.
+extern "C" int seeksv_extend_bin_edge(int i) {
+  return (i >= 0 && i < kBins - 1) ? kEdges[i] : -1;
 }
 
 extern "C" int seeksv_extend_resident(const uint8_t* q4, const int* qlen,
                                       const int* tstart, const int* tlen,
                                       const int* h0, const uint8_t* refp,
                                       long long n_codes, int B, int LQ,
-                                      int LT, int reverse, int* out,
+                                      int LT, int reverse, const int* order,
+                                      const int* seg, int* out,
                                       void* stream) {
   if (B == 0) return 0;
   const Codes<false> src{q4, refp, tstart, n_codes, LQ, LT, reverse};
-  return static_cast<int>(launch(src, qlen, tlen, h0, B, out,
+  return static_cast<int>(launch(src, qlen, tlen, h0, order, seg, B, out,
                                  static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int seeksv_extend_windows(const uint8_t* q, const int* qlen,
                                      const uint8_t* t, const int* tlen,
                                      const int* h0, int B, int LQ, int LT,
+                                     const int* order, const int* seg,
                                      int* out, void* stream) {
   if (B == 0) return 0;
   const Codes<true> src{q, t, nullptr, 0, LQ, LT, 0};
-  return static_cast<int>(launch(src, qlen, tlen, h0, B, out,
+  return static_cast<int>(launch(src, qlen, tlen, h0, order, seg, B, out,
                                  static_cast<cudaStream_t>(stream)));
 }
 

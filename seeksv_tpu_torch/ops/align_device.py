@@ -17,8 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from seeksv_tpu.align.sw import MATCH, PEN_CLIP
-
+from ..align.sw import MATCH, PEN_CLIP
 from .extend import extend_batch
 from .seed_device import TOP_CANDIDATES, TorchDeviceSeeder, \
     hit_cap_ladder, pad_reads

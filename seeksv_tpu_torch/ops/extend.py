@@ -17,6 +17,12 @@ resident-genome entry and its window entry) and
 - ``extend_batch``: the wrapper on uint8 [B, LQ] / [B, LT] windows already
   on the device (the device front-end's), counterpart of
   ``pallas_extend_batch``; the same kernel reads them as they lie.
+- ``plan_bins``: the kernel's dispatch, in torch ops on the jobs' device:
+  one warp runs one job with the cells a lane holds sized to the job's
+  own qlen, so the jobs are binned by qlen (``BIN_EDGES``), the bins
+  ordered widest first and the jobs of a bin by falling qlen x tlen; a
+  call is one launch per bin that a query of the bucket LQ can fall into
+  (``bin_launches``), each job's results written at its own index.
 
 Scores: match +1, mismatch -4, ambiguous (code > 3) -1, gap open 6,
 extend 1, z-drop 100.  Outputs per job: max_score, qle/tle (first
@@ -36,10 +42,17 @@ NEG_INF = -0x10000000
 ZDROP = 100
 BIG = 0x7FFFFFFF
 KEYS = ("max_score", "qle", "tle", "gscore", "gtle")
+# query-length bins of the CUDA kernel: a job whose qlen is at most
+# BIN_EDGES[i] (and above the edge before) runs in bin i, one warp with
+# BIN_EDGES[i] / 32 cells a lane; longer queries run in the last bin's
+# width in several passes a row.  csrc/extend.cu holds the same edges
+# (kEdges) and every launch checks that the two agree.
+BIN_EDGES = (128, 256, 512, 1024)
 
-# CUDA launches of the resident entry by direction (left = reversed
-# windows) and of the window entry; plain-version calls made for CPU
-# tensors are counted apart
+# CUDA kernel launches of the resident entry by direction (left =
+# reversed windows) and of the window entry: a call adds one per bin it
+# launches (bin_launches(LQ)); plain-version calls made for CPU tensors
+# are counted apart
 LAUNCHES = {"extend_left": 0, "extend_right": 0, "extend_windows": 0}
 PLAIN_CALLS = {"extend_left": 0, "extend_right": 0, "extend_windows": 0}
 
@@ -77,9 +90,14 @@ def gather_ref_windows(refp: torch.Tensor, n_codes: int, start: torch.Tensor,
 
 
 def extend_batch_plain(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
-                       tlen: torch.Tensor, h0: torch.Tensor) -> dict:
+                       tlen: torch.Tensor, h0: torch.Tensor,
+                       with_rows: bool = False) -> dict:
     """Plain PyTorch extension: q [B, LQ], t [B, LT] codes, qlen/tlen/h0
-    [B].  Returns a dict of int32 [B] tensors (KEYS).
+    [B].  Returns a dict of int32 [B] tensors (KEYS); with_rows adds
+    "rows", the target rows each job ran before tlen or z-drop ended it,
+    and "rows_improved", those of them that raised the job's best (the
+    rows whose first-occurrence argmax is needed): what a roofline bound
+    of this data counts.
 
     Rows stop once no job is active: activity (i < tlen, not z-dropped)
     never returns, so the frozen state is the final one."""
@@ -113,11 +131,15 @@ def extend_batch_plain(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
     s_mis = torch.tensor(-MISMATCH, dtype=i32, device=dev)
     big = torch.tensor(BIG, dtype=i32, device=dev)
     q_amb = q > 3
+    rows = torch.zeros(B, dtype=i32, device=dev)
+    rows_improved = torch.zeros(B, dtype=i32, device=dev)
     n_rows = min(LT, int(tlen.max())) if B else 0
     for i in range(n_rows):
         active = (i < tlen) & ~dead
         if not bool(active.any()):
             break
+        if with_rows:
+            rows += active
         tcol = t[:, i:i + 1]
         sub = torch.where(q_amb | (tcol > 3), s_amb,
                           torch.where(q == tcol, s_match, s_mis))
@@ -133,6 +155,8 @@ def extend_batch_plain(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
         row_arg = torch.where(h_row == row_best[:, None], jidx,
                               big).min(dim=1).values
         improved = active & (row_best > best)
+        if with_rows:
+            rows_improved += improved
         best = torch.where(improved, row_best, best)
         qle = torch.where(improved, row_arg, qle)
         tle = torch.where(improved, torch.full_like(tle, i + 1), tle)
@@ -146,17 +170,55 @@ def extend_batch_plain(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
         h_first = torch.where(active, h0_col, h_first)
         h = torch.where(active[:, None], h_row, h)
         e = torch.where(active[:, None], torch.where(valid_q, ecand, neg), e)
-    return {"max_score": best, "qle": qle, "tle": tle, "gscore": gscore,
-            "gtle": gtle}
+    out = {"max_score": best, "qle": qle, "tle": tle, "gscore": gscore,
+           "gtle": gtle}
+    if with_rows:
+        out["rows"] = rows
+        out["rows_improved"] = rows_improved
+    return out
 
 
 def extend_batch_resident_plain(q4, qlen, tstart, tlen, h0, refp, n_codes,
-                                LQ, LT, reverse) -> dict:
+                                LQ, LT, reverse,
+                                with_rows: bool = False) -> dict:
     """Plain version of the resident entry: unpack the queries, gather the
     target windows from the packed genome, extend."""
     q = unpack_nibbles(q4, LQ)
     t = gather_ref_windows(refp, n_codes, tstart, tlen, LT, reverse)
-    return extend_batch_plain(q, qlen, t, tlen, h0)
+    return extend_batch_plain(q, qlen, t, tlen, h0, with_rows)
+
+
+def bin_launches(LQ: int) -> int:
+    """Kernel launches of one call at the query bucket LQ: one per bin
+    that a query of at most LQ can fall into."""
+    return 1 + sum(LQ > e for e in BIN_EDGES)
+
+
+def plan_bins(qlen: torch.Tensor, tlen: torch.Tensor, LQ: int):
+    """The kernel's dispatch of B jobs of the query bucket LQ: (order, seg).
+
+    order [B] int32: the jobs, bins widest first (queries past
+    BIN_EDGES[-1], then the bins of BIN_EDGES from the last to the first),
+    inside a bin by falling qlen x tlen (the longest job starts first).
+    seg [len(BIN_EDGES) + 2] int32: the bins' offsets into order, in that
+    order.  A job with no query cell or no target row does no work and
+    goes to the narrowest bin; a qlen past LQ has LQ cells and is binned
+    as LQ, so every job lies in a bin that the call launches.  Torch ops
+    on the device of qlen; no synchronisation with the host."""
+    dev = qlen.device
+    n_bins = len(BIN_EDGES) + 1
+    q = qlen.to(torch.int64).clamp(max=LQ)
+    t = tlen.to(torch.int64).clamp(min=0)
+    edges = torch.tensor(BIN_EDGES, dtype=torch.int64, device=dev)
+    bin_id = torch.bucketize(q, edges)          # edges[i-1] < qlen <= edges[i]
+    bin_id = torch.where((q <= 0) | (t <= 0), torch.zeros_like(bin_id),
+                         bin_id)
+    key = bin_id * (1 << 44) + (q.clamp(min=0) * t).clamp(max=(1 << 44) - 1)
+    order = torch.argsort(key, descending=True).to(torch.int32)
+    counts = torch.bincount(bin_id, minlength=n_bins)
+    seg = torch.zeros(n_bins + 1, dtype=torch.int64, device=dev)
+    seg[1:] = torch.cumsum(counts.flip(0), 0)
+    return order, seg.to(torch.int32)
 
 
 def _check(name, x, dtype, shape, device):
@@ -196,10 +258,12 @@ def extend_batch_resident(q4: torch.Tensor, qlen: torch.Tensor,
         PLAIN_CALLS[key] += 1
         return extend_batch_resident_plain(q4, qlen, tstart, tlen, h0, refp,
                                            n_codes, LQ, LT, reverse)
-    return _launch("seeksv_extend_resident", key, dev, B, LQ, q4.data_ptr(),
-                   qlen.data_ptr(), tstart.data_ptr(), tlen.data_ptr(),
-                   h0.data_ptr(), refp.data_ptr(), n_codes, B, LQ, LT,
-                   int(reverse))
+    if q4.data_ptr() % 4:
+        q4 = q4.clone()     # the kernel reads the packed query by words
+    return _launch("seeksv_extend_resident", key, dev, qlen, tlen, LQ,
+                   q4.data_ptr(), qlen.data_ptr(), tstart.data_ptr(),
+                   tlen.data_ptr(), h0.data_ptr(), refp.data_ptr(), n_codes,
+                   B, LQ, LT, int(reverse))
 
 
 def extend_batch(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
@@ -222,25 +286,35 @@ def extend_batch(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
     if dev.type == "cpu":
         PLAIN_CALLS["extend_windows"] += 1
         return extend_batch_plain(q, qlen, t, tlen, h0)
-    return _launch("seeksv_extend_windows", "extend_windows", dev, B, LQ,
-                   q.data_ptr(), qlen.data_ptr(), t.data_ptr(),
+    return _launch("seeksv_extend_windows", "extend_windows", dev, qlen,
+                   tlen, LQ, q.data_ptr(), qlen.data_ptr(), t.data_ptr(),
                    tlen.data_ptr(), h0.data_ptr(), B, LQ, LT)
 
 
-def _launch(entry: str, key: str, dev, B: int, LQ: int, *args) -> dict:
+def _launch(entry: str, key: str, dev, qlen, tlen, LQ: int, *args) -> dict:
     """Launch an entry of csrc/extend.cu on `dev` (CUDA, or raise) with
-    its leading arguments, then the output and the stream; count it."""
+    its leading arguments, then the dispatch (plan_bins), the output and
+    the stream; count its kernel launches (one per bin of the bucket
+    LQ)."""
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if LQ % 32 or not 32 <= LQ <= 16384:
+        raise ValueError(f"query bucket LQ={LQ} has no launch shape "
+                         "(needs a multiple of 32, at most 16384)")
     from .. import _build
     lib = _build.lib()
-    if lib.seeksv_extend_cells_per_thread(LQ) == 0:
-        raise ValueError(f"query bucket LQ={LQ} has no block shape "
-                         "(needs a multiple of 32, at most 16384)")
-    out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    edges = tuple(lib.seeksv_extend_bin_edge(i)
+                  for i in range(lib.seeksv_extend_bins() - 1))
+    if edges != BIN_EDGES:
+        raise RuntimeError(f"csrc/extend.cu bins queries at {edges}, "
+                           f"BIN_EDGES says {BIN_EDGES}")
+    B = qlen.shape[0]
+    out = torch.empty((len(KEYS), B), dtype=torch.int32, device=dev)
     if B:
-        rc = getattr(lib, entry)(*args, out.data_ptr(),
+        order, seg = plan_bins(qlen, tlen, LQ)
+        rc = getattr(lib, entry)(*args, order.data_ptr(), seg.data_ptr(),
+                                 out.data_ptr(),
                                  torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, entry)
-        LAUNCHES[key] += 1
+        LAUNCHES[key] += bin_launches(LQ)
     return dict(zip(KEYS, out.unbind(0)))

@@ -13,7 +13,7 @@ two cheap rungs of the host ladder on the device:
   walk     the traceback from (m, n) to (0, 0) over the direction bytes,
            run-length encoded on the device (RUNS_CAP runs per job; more
            goes back to the host).  NM is computed on the host from the
-           runs (seeksv_tpu.io.native.nm_from_runs).
+           runs (io.native.nm_from_runs).
 
 Direction bytes reproduce the C++ traceback's value comparisons (DM 1,
 DE 2, DF 4, ERUN 8, FRUN 16), so score, CIGAR and NM equal the host
@@ -410,13 +410,13 @@ class TorchDeviceGlobalAligner:
             run_tb(dirs64, dl64, sound64, sc64)
         if not accepted:
             return
-        from seeksv_tpu.io import native
+        from ..io import native
         a_q = [q[rr, :ms[rr]] for _oi, rr, _sc, _cg in accepted]
         a_t = [t[rr, :ns[rr]] for _oi, rr, _sc, _cg in accepted]
         a_runs = [cg for _oi, _rr, _sc, cg in accepted]
         if not native.nm_from_runs_available():
             raise RuntimeError("NM of the device walks needs the native host "
-                               "library (csrc/libseeksv_native.so)")
+                               f"library: {native.LOAD_ERROR}")
         nms = native.nm_from_runs(a_q, a_t, a_runs)
         for (oi, _rr, sc, cg), nmv in zip(accepted, nms):
             out[oi] = (sc, cg, int(nmv))

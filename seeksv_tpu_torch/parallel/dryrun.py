@@ -28,11 +28,8 @@ from .spmd_pipeline import is_writer, spmd_run_pipeline
 def simulated_dataset(root: str) -> dict:
     """__graft_entry__.py:118-132: a 40 kb genome with deletions at
     8,000-9,000 and 25,000-25,600, reads at 25x from seed 0."""
-    from seeksv_tpu.utils.simulate import (build_donor, random_genome,
-                                           simulate_reads, write_fasta)
-
-    from .._build import ensure_native
-    ensure_native()      # the simulator's BAM writer uses the C++ kernels
+    from ..utils.simulate import (build_donor, random_genome,
+                                  simulate_reads, write_fasta)
     rng = np.random.default_rng(0)
     G = 40_000
     ref = {"chr17": random_genome(rng, G)}

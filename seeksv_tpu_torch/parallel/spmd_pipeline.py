@@ -7,14 +7,15 @@ DeviceMesh of one process per rank:
   * getclip consensus — breakpoint-key groups split contiguously over the
     ranks; each rank runs K5 (``ops.consensus_scan``) on its groups, in
     chunks under a byte budget, and the slot tables are all-gathered.
-  * realignment — ``TorchBatchAligner`` with ``shard_mesh``: each rank
+  * realignment — ``BatchAligner`` with ``shard_mesh``: each rank
     extends its block of jobs with K1w, results all-gathered.
   * junction tables — each rank generates the events of its block of
-    clip groups, encodes them (the reference's ``_encode_events``) into
+    clip groups, encodes them (``_encode_events``) into
     one int32 table, all-gathers it and replays the gathered stream in
     order; the chromosome names and sizes go round as one small object
     gather.
-  * MergeJunction — the reference's ``merge_junction_sharded``.
+  * MergeJunction — ``merge_junction_sharded``, partitions of the sorted
+    junction list on host threads.
   * coverage / insert size — segment diffs scatter-added per dp shard,
     summed over dp, genome blocks over gp; the first-N insert-size mask
     from an all-gathered prefix count, histogram summed over dp
@@ -25,8 +26,9 @@ DeviceMesh of one process per rank:
 Every rank runs the same host code on the same input; only rank 0 writes
 the user's output files (the other ranks write their working copies of
 the getclip and realign outputs under a private directory, and skip the
-getsv output).  The host helpers are the reference's, imported through
-``_shared`` (no jax).  A one-rank mesh runs the same device code as any
+getsv output).  The host helpers (event capture and encoding, the
+partitioned MergeJunction, the insert-size columns) are this module's
+own, numpy only.  A one-rank mesh runs the same device code as any
 other: the reference's one-device host shortcuts are not ported.
 """
 from __future__ import annotations
@@ -39,42 +41,34 @@ import tempfile
 import time
 from collections import defaultdict
 from fractions import Fraction
-from typing import Dict, List, Optional
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from seeksv_tpu.align.engine import Aligner
-from seeksv_tpu.align.index import KmerIndex
-from seeksv_tpu.io.bam import (BamRecords, FMREVERSE, FMUNMAP, FREVERSE,
-                               FUNMAP, read_bam)
-from seeksv_tpu.ops import cigar as cg
-from seeksv_tpu.pipeline.driver import realign_clips
-from seeksv_tpu.pipeline.getclip import _store_unmapped
-from seeksv_tpu.pipeline.getsv import (DepthQuery, DiscordantCounter,
-                                       JunctionMap, SV_HEADER,
-                                       insert_junction_event,
-                                       iter_soft_groups, junction_event,
-                                       output_breakpoints)
-
+from ..align.engine import Aligner, BatchAligner
+from ..align.index import KmerIndex
+from ..io.bam import (BamRecords, FDUP, FMREVERSE, FMUNMAP, FREVERSE,
+                      FUNMAP, OP_H, OP_S, read_bam)
+from ..ops import cigar as cg
 from ..ops import coverage as cov_ops
 from ..ops.consensus_scan import consensus_scan_groups
 from ..ops.discordant import discordant_count_batch
-from ._shared import spmd_pipeline as _ref
+from ..pipeline.driver import native_stage, realign_clips
+from ..pipeline.getclip import (_get_sclip_read, _map_len_no_x,
+                                _store_unmapped)
+from ..pipeline.getsv import (DepthQuery, DiscordantCounter, JunctionMap,
+                              SV_HEADER, depth_segments,
+                              insert_junction_event, iter_soft_groups,
+                              junction_event, output_breakpoints)
+from ..pipeline.junctions import SeqInfo
 from .mesh import (agree, all_gather, all_reduce_sum, mesh_device,
                    shard_index)
 
-# the reference's host helpers (numpy only), imported, not copied
-clip_insert_streams = _ref.clip_insert_streams
-merge_junction_sharded = _ref.merge_junction_sharded
-_EncodedEvents = _ref._EncodedEvents
-_encode_events = _ref._encode_events
-_decode_event = _ref._decode_event
-_flat_segments = _ref._flat_segments
-_insert_columns = _ref._insert_columns
-_insert_stats_from_hist = _ref._insert_stats_from_hist
-HIST_SIZE = _ref.HIST_SIZE
+_OPS = "MIDNSHP=X"
+_OP_IDX = {c: i for i, c in enumerate(_OPS)}
 
 # bytes of one K5 call's [groups, G, LL + LR] side matrices; a rank's
 # groups go through in chunks under it (groups are independent)
@@ -109,6 +103,66 @@ def _block(n: int, ndev: int, me: int):
 # --------------------------------------------------------------------------
 # getclip on the mesh
 # --------------------------------------------------------------------------
+
+class _EventSink:
+    """Stands in for BreakpointMap during stream extraction: records the
+    ordered insert events instead of merging them."""
+
+    def __init__(self):
+        self.events: List[tuple] = []
+
+    def insert(self, pos, s_l, q_l, s_r, q_r, cigar, limit, left_clipped):
+        self.events.append((int(pos), s_l, q_l, s_r, q_r, list(cigar)))
+
+
+def clip_insert_streams(recs: BamRecords, threshold: float, min_mapq: int,
+                        save_low_quality: bool):
+    """Replays getclip's streaming loop (incl. the flush/drop quirks,
+    clip_reads.h:423-438) but captures the per-flush-segment ordered
+    insert-event streams instead of merging.  Returns
+    [(tid, left_events, right_events)] in flush order."""
+    flag = recs.flag
+    unmapped_any = (flag & (FUNMAP | FMUNMAP)) != 0
+    mapped = ~unmapped_any
+    first_op = recs.first_op()
+    last_op = recs.last_op()
+    has_hard = (first_op == OP_H) | (last_op == OP_H)
+    clip_candidate = (mapped & ~has_hard
+                      & ((first_op == OP_S) | (last_op == OP_S))
+                      & (recs.mapq >= min_mapq) & ((flag & FDUP) == 0))
+    first_len = recs.first_len()
+    last_len = recs.last_len()
+    map_len = _map_len_no_x(recs)
+
+    segments: List[Tuple[int, list, list]] = []
+    left_sink, right_sink = _EventSink(), _EventSink()
+
+    def flush(tid):
+        segments.append((tid, left_sink.events, right_sink.events))
+        left_sink.events = []
+        right_sink.events = []
+
+    mapped_idx = np.nonzero(mapped)[0]
+    last_tid = 0
+    if len(mapped_idx):
+        mtids = recs.tid[mapped_idx]
+        run_starts = np.concatenate(
+            [[0], np.nonzero(mtids[1:] != mtids[:-1])[0] + 1, [len(mtids)]])
+        for r in range(len(run_starts) - 1):
+            s, e = int(run_starts[r]), int(run_starts[r + 1])
+            tid = int(mtids[s])
+            if tid != last_tid:
+                flush(last_tid)
+                last_tid = tid
+                s += 1  # quirk: flush-triggering record is dropped
+            run = mapped_idx[s:e]
+            for i in run[clip_candidate[run]]:
+                _get_sclip_read(recs, int(i), left_sink, right_sink,
+                                threshold, save_low_quality, first_op,
+                                last_op, first_len, last_len, map_len)
+    flush(last_tid)
+    return segments
+
 
 def consensus_inputs(group_events: List[list], G: int, LL: int, LR: int):
     """The n groups as K5's inputs (spmd_pipeline.py:162-173): seq_l
@@ -276,6 +330,68 @@ def spmd_getclip(mesh, bam_path: str, prefix: str, threshold: float = 0.85,
 # junction tables through the mesh
 # --------------------------------------------------------------------------
 
+@dataclass
+class _EncodedEvents:
+    """Fixed-shape encoding of junction events (key 6-tuple + SeqInfo
+    payloads) for the mesh all-gather."""
+    key: np.ndarray        # [E, 6] int32
+    useq: np.ndarray       # [E, LS] uint8
+    dseq: np.ndarray       # [E, LS] uint8
+    ulen: np.ndarray       # [E] int32
+    dlen: np.ndarray       # [E] int32
+    ucig: np.ndarray       # [E, C] uint32 (len<<4 | op)
+    dcig: np.ndarray       # [E, C] uint32
+    meta: np.ndarray       # [E, 10] int32: n_ucig, n_dcig, up(lcl,rcl,support,uniq), down(lcl,rcl,support,uniq)
+    valid: np.ndarray      # [E] bool
+
+
+def _encode_events(events, name2id, E, LS, C):
+    key = np.zeros((E, 6), np.int32)
+    useq = np.zeros((E, LS), np.uint8)
+    dseq = np.zeros((E, LS), np.uint8)
+    ulen = np.zeros(E, np.int32)
+    dlen = np.zeros(E, np.int32)
+    ucig = np.zeros((E, C), np.uint32)
+    dcig = np.zeros((E, C), np.uint32)
+    meta = np.zeros((E, 10), np.int32)
+    valid = np.zeros(E, bool)
+    for i, (j, up, down) in enumerate(events):
+        key[i] = (name2id[j[0]], j[1], 0 if j[2] == "+" else 1,
+                  name2id[j[3]], j[4], 0 if j[5] == "+" else 1)
+        ub = np.frombuffer(up.seq, np.uint8)
+        db = np.frombuffer(down.seq, np.uint8)
+        useq[i, :len(ub)] = ub
+        dseq[i, :len(db)] = db
+        ulen[i], dlen[i] = len(ub), len(db)
+        for c, (ln, op) in enumerate(up.cigar):
+            ucig[i, c] = (ln << 4) | _OP_IDX[op]
+        for c, (ln, op) in enumerate(down.cigar):
+            dcig[i, c] = (ln << 4) | _OP_IDX[op]
+        meta[i, 0] = len(up.cigar)
+        meta[i, 1] = len(down.cigar)
+        meta[i, 2:6] = (up.lcl, up.rcl, up.support, up.uniq)
+        meta[i, 6:10] = (down.lcl, down.rcl, down.support, down.uniq)
+        valid[i] = True
+    return _EncodedEvents(key, useq, dseq, ulen, dlen, ucig, dcig, meta,
+                          valid)
+
+
+def _decode_event(enc: _EncodedEvents, i: int, id2name):
+    k = enc.key[i]
+    j = (id2name[k[0]], int(k[1]), "+" if k[2] == 0 else "-",
+         id2name[k[3]], int(k[4]), "+" if k[5] == 0 else "-")
+    m = enc.meta[i]
+    ucig = [((int(v) >> 4), _OPS[int(v) & 0xF])
+            for v in enc.ucig[i, :m[0]]]
+    dcig = [((int(v) >> 4), _OPS[int(v) & 0xF])
+            for v in enc.dcig[i, :m[1]]]
+    up = SeqInfo(enc.useq[i, :enc.ulen[i]].tobytes(), ucig,
+                 int(m[2]), int(m[3]), int(m[4]), int(m[5]))
+    down = SeqInfo(enc.dseq[i, :enc.dlen[i]].tobytes(), dcig,
+                   int(m[6]), int(m[7]), int(m[8]), int(m[9]))
+    return j, up, down
+
+
 def _pow2(n: int) -> int:
     b = 8
     while b < n:
@@ -378,8 +494,306 @@ def spmd_build_junctions(mesh, clipfile: str, samfile: str,
 
 
 # --------------------------------------------------------------------------
+# MergeJunction, partitioned over the sorted junction list
+# --------------------------------------------------------------------------
+
+def _merge_pair_strings(ji, oi, jk, ok):
+    """The four shifted sequences MergeJunction compares for a candidate
+    pair (ref: getsv.cpp:1355-1410), or None when the pair can never
+    merge (the `skip` / no-single-cigar branches).  Depends only on
+    seq/cigar/positions — none of which the merge mutates — so the 0.85
+    gate is precomputable for every pair before the stateful scan."""
+    if len(oi.up.cigar) == 1 and len(ok.up.cigar) == 1:
+        mh = jk[1] - ji[1]
+        if ((ji[2] == "+" and len(ok.up.seq) < mh + 5)
+                or (ji[2] == "-" and len(oi.up.seq) < mh + 5)):
+            return None
+        if ji[2] == "+":
+            return (oi.up.seq, oi.down.seq,
+                    ok.up.seq[: len(ok.up.seq) - mh],
+                    ok.up.seq[len(ok.up.seq) - mh:] + ok.down.seq)
+        return (oi.up.seq[: len(oi.up.seq) - mh],
+                oi.up.seq[len(oi.up.seq) - mh:] + oi.down.seq,
+                ok.up.seq, ok.down.seq)
+    if len(oi.down.cigar) == 1 and len(ok.down.cigar) == 1:
+        mh = abs(jk[4] - ji[4])
+        if ((ji[2] == "+" and len(oi.down.seq) < mh + 5)
+                or (ji[2] == "-" and len(ok.down.seq) < mh + 5)):
+            return None
+        if ji[2] == "+":
+            return (oi.up.seq + oi.down.seq[:mh], oi.down.seq[mh:],
+                    ok.up.seq, ok.down.seq)
+        return (oi.up.seq, oi.down.seq,
+                ok.up.seq + ok.down.seq[:mh], ok.down.seq[mh:])
+    return None
+
+
+def _enumerate_merge_pairs(items, lo: int, hi: int, search_length: int):
+    """Candidate pairs (i, k) of one partition with their four shifted
+    strings (state-independent — see _merge_pair_strings)."""
+    pairs = []
+    strs = []
+    for i in range(lo, hi):
+        ji, oi = items[i]
+        if oi.up.rcl > 0 or oi.up.lcl > 0:
+            continue
+        for k in range(i + 1, hi):
+            jk, ok = items[k]
+            if jk[1] - ji[1] > search_length:
+                break
+            if abs(jk[4] - ji[4]) <= search_length and ok.down.lcl == 0:
+                s = _merge_pair_strings(ji, oi, jk, ok)
+                if s is not None:
+                    pairs.append((i, k))
+                    strs.append(s)
+    return pairs, strs
+
+
+def _batch_merge_gates(pairs, strs):
+    """The 0.85 both-side match gate for EVERY candidate pair of every
+    partition as one padded data-parallel comparison (the reference
+    evaluates it pair-at-a-time, getsv.cpp:1411; this formulation is a
+    single fused elementwise+reduce op — the device-native shape of the
+    merge's compute)."""
+    if not pairs:
+        return {}
+    LU = max(max(min(len(a), len(c)) for a, _b, c, _d in strs), 1)
+    LD = max(max(min(len(b), len(d)) for _a, b, _c, d in strs), 1)
+    P = len(pairs)
+    # right-anchored (match_rate_end) for up, left-anchored for down
+    u1 = np.zeros((P, LU), np.uint8)
+    u2 = np.full((P, LU), 0xFF, np.uint8)
+    d1 = np.zeros((P, LD), np.uint8)
+    d2 = np.full((P, LD), 0xFF, np.uint8)
+    nu = np.zeros(P, np.int32)
+    nd = np.zeros(P, np.int32)
+    for p, (a, b, c, d) in enumerate(strs):
+        n1 = min(len(a), len(c))
+        if n1:
+            u1[p, :n1] = np.frombuffer(a[len(a) - n1:], np.uint8)
+            u2[p, :n1] = np.frombuffer(c[len(c) - n1:], np.uint8)
+        nu[p] = n1
+        n2 = min(len(b), len(d))
+        if n2:
+            d1[p, :n2] = np.frombuffer(b[:n2], np.uint8)
+            d2[p, :n2] = np.frombuffer(d[:n2], np.uint8)
+        nd[p] = n2
+    mu = (u1 == u2).sum(axis=1).astype(np.float64)
+    md = (d1 == d2).sum(axis=1).astype(np.float64)
+    # the same float64 division-then-compare as match_rate_end/begin (and
+    # the C++, clip_reads.cpp:194-217); n == 0 reproduces the
+    # NaN-compares-false semantics
+    with np.errstate(invalid="ignore", divide="ignore"):
+        gate = ((nu > 0) & (nd > 0)
+                & (mu / nu >= 0.85) & (md / nd >= 0.85))
+    return {pk: bool(g) for pk, g in zip(pairs, gate)}
+
+
+def _merge_partition_gated(items, lo: int, hi: int, search_length: int,
+                           gates) -> List[tuple]:
+    """The sequential MergeJunction scan of one partition with the 0.85
+    gate looked up from the precomputed table (state transitions —
+    support/uniq/mh accumulation, survivor priority, deletions — are
+    byte-identical to pipeline.getsv.merge_junction; gate keys are
+    original item indices, which deletions never invalidate because the
+    window conditions test values, not positions)."""
+    sub = [list(t) + [idx] for idx, t in enumerate(items[lo:hi], start=lo)]
+    i = 0
+    while i < len(sub):
+        ji, oi, id_i = sub[i]
+        if oi.up.rcl > 0 or oi.up.lcl > 0:
+            i += 1
+            continue
+        k = i + 1
+        mark = False
+        while (k < len(sub)
+               and ji[0] == sub[k][0][0] and ji[3] == sub[k][0][3]
+               and ji[2] == sub[k][0][2] and ji[5] == sub[k][0][5]
+               and sub[k][0][1] - ji[1] <= search_length):
+            jk, ok, id_k = sub[k]
+            if abs(jk[4] - ji[4]) <= search_length and ok.down.lcl == 0:
+                if gates.get((id_i, id_k), False):
+                    oi.up.uniq = max(oi.up.uniq, ok.up.uniq)
+                    oi.down.uniq = max(oi.down.uniq, ok.down.uniq)
+                    if oi.mh == -1 and ok.mh == -1:
+                        oi.up.support += ok.up.support
+                        oi.down.support += ok.down.support
+                        if ((oi.up.support != 0 and ok.down.support != 0)
+                                or (oi.down.support != 0
+                                    and ok.up.support != 0)):
+                            oi.mh = jk[1] - ji[1]
+                        del sub[k]
+                    elif oi.mh != -1 and ok.mh == -1:
+                        oi.up.support += ok.up.support
+                        oi.down.support += ok.down.support
+                        del sub[k]
+                    elif oi.mh == -1 and ok.mh != -1:
+                        ok.up.support += oi.up.support
+                        ok.down.support += oi.down.support
+                        mark = True
+                    else:
+                        if (oi.up.support > ok.up.support
+                                or oi.down.support == ok.down.support):
+                            oi.up.support += ok.up.support
+                            del sub[k]
+                        elif (oi.up.support == ok.up.support
+                                or oi.down.support > ok.down.support):
+                            oi.down.support += ok.down.support
+                            del sub[k]
+                        elif (ok.up.support > oi.up.support
+                                and oi.down.support == ok.down.support):
+                            ok.up.support += oi.up.support
+                            mark = True
+                        elif (ok.down.support > oi.down.support
+                                and ok.up.support == oi.up.support):
+                            ok.down.support += oi.down.support
+                            mark = True
+                        else:
+                            k += 1
+                    if mark:
+                        break
+                else:
+                    k += 1
+            else:
+                k += 1
+        if mark:
+            del sub[i]
+        else:
+            i += 1
+    return [(j, o) for j, o, _id in sub]
+
+
+def merge_junction_sharded(jmap: JunctionMap, search_length: int,
+                           max_workers: int = 0) -> int:
+    """Partitioned MergeJunction (ref: getsv.cpp:1325-1482): the merge
+    scan from item i only reaches items k with identical
+    (up_chr, down_chr, up_strand, down_strand) and
+    up_pos[k] - up_pos[i] <= search_length, so cutting the key-sorted
+    table where the prefix changes or the up_pos gap exceeds
+    search_length yields fully independent partitions.  The parallelism
+    is realized in the GATE phase: every partition's 0.85 match
+    comparisons (the merge's compute, >90% of its work) evaluate as ONE
+    padded data-parallel batched op.  The cheap stateful replays then
+    run per partition on a thread pool — independent and safe, though on
+    CPython they interleave under the GIL rather than speed up
+    (scripts/bench_merge.py reports the interleaving honestly; true
+    replay parallelism needs free-threading or processes).  Exact vs the
+    sequential pass — asserted by tests/test_spmd_pipeline.py.  Returns
+    the number of partitions (the available parallelism)."""
+    import concurrent.futures as cf
+    import os
+
+    items = jmap.items
+    n = len(items)
+    if n == 0:
+        return 0
+    cuts = [0]
+    for idx in range(1, n):
+        a = items[idx - 1][0]
+        b = items[idx][0]
+        if ((a[0], a[3], a[2], a[5]) != (b[0], b[3], b[2], b[5])
+                or b[1] - a[1] > search_length):
+            cuts.append(idx)
+    cuts.append(n)
+    spans = list(zip(cuts, cuts[1:]))
+
+    # Phase 1 — the match-gate compute for every pair of every partition
+    # as ONE data-parallel batched comparison (>90% of the merge's work).
+    all_pairs: list = []
+    all_strs: list = []
+    for lo, hi in spans:
+        p, s = _enumerate_merge_pairs(items, lo, hi, search_length)
+        all_pairs.extend(p)
+        all_strs.extend(s)
+    gates = _batch_merge_gates(all_pairs, all_strs)
+
+    # Phase 2 — the cheap stateful replays, independent per partition,
+    # on a thread pool (chunked so each task is big enough to overlap).
+    def run(span):
+        lo, hi = span
+        return _merge_partition_gated(items, lo, hi, search_length, gates)
+
+    if max_workers <= 0:
+        max_workers = min(8, os.cpu_count() or 1)
+    if max_workers > 1 and len(spans) > 1:
+        with cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
+            merged_parts = list(ex.map(run, spans))
+    else:
+        merged_parts = [run(s) for s in spans]
+    new = JunctionMap()
+    for part in merged_parts:
+        for j, o in part:
+            new.insert(j, o)
+    jmap.keys = new.keys
+    jmap.items = new.items
+    jmap._seq = new._seq
+    return len(spans)
+
+
+# --------------------------------------------------------------------------
+# insert-size + coverage (one shard_map step), discordant windows (second)
+# --------------------------------------------------------------------------
+
+HIST_SIZE = 1 << 16
+
+
+# --------------------------------------------------------------------------
 # coverage + insert size, discordant windows
 # --------------------------------------------------------------------------
+
+def _flat_segments(recs: BamRecords, min_mapq: int, offsets: np.ndarray,
+                   g_pad: int):
+    """Depth segments in genome-flat coordinates (host prep shared by the
+    SPMD and multi-process steps).  Native single-pass when built (the
+    numpy form below is the oracle — identical output asserted by the
+    SPMD-vs-sequential coverage parity tests)."""
+    from ..io import native
+    if native.depth_segments_flat_available():
+        return native.depth_segments_flat(recs, min_mapq, offsets)
+    seg_start, seg_end, seg_tid = depth_segments(recs, min_mapq)
+    # clip per-tid (a segment overhanging its chromosome end must not
+    # bleed into the next tid's block in the flat coordinate space)
+    tid_lens = np.asarray(recs.ref_lens, np.int64)[seg_tid]
+    seg_start = np.clip(seg_start, 0, tid_lens)
+    seg_end = np.clip(seg_end, 0, tid_lens)
+    flat_start = (seg_start + offsets[seg_tid]).astype(np.int64)
+    flat_end = (seg_end + offsets[seg_tid]).astype(np.int64)
+    return flat_start, flat_end
+
+
+def _insert_columns(recs: BamRecords, min_mapq: int):
+    """Per-record first-N qualification mask + clamped isize columns
+    (ref cluster.cpp:25-56)."""
+    first_op = recs.first_op()
+    last_op = recs.last_op()
+    has_cigar = recs.cig_off[1:] > recs.cig_off[:-1]
+    hard = has_cigar & ((first_op == OP_H) | (last_op == OP_H))
+    from ..io.bam import FPAIRED, FPROPER_PAIR
+    ok = ((recs.mapq >= min_mapq)
+          & ((recs.flag & FPAIRED) != 0) & ((recs.flag & FPROPER_PAIR) != 0)
+          & ((recs.flag & FDUP) == 0) & (recs.isize > 0) & ~hard)
+    isize = np.clip(recs.isize, 0, HIST_SIZE - 1).astype(np.int32)
+    over = np.asarray(recs.isize >= HIST_SIZE)
+    return ok, isize, over
+
+
+def _insert_stats_from_hist(hist: np.ndarray, extra_vals=()):
+    """Exact integer mean + truncated-int deviation (cluster.cpp:15-83)
+    from the device histogram, plus any host-spilled overflow values
+    (isize >= HIST_SIZE; rare but legal — the histogram rows for them
+    are clamped on-device and replaced by their exact values here)."""
+    extra = np.asarray(list(extra_vals), np.int64)
+    n = int(hist.sum()) + len(extra)
+    if n == 0:
+        return 0, 0
+    vals = np.arange(HIST_SIZE, dtype=np.int64)
+    mean = int(((hist * vals).sum() + extra.sum()) // n)
+    import math
+    ss = float((hist * (vals - mean) ** 2).sum()) \
+        + float(((extra - mean).astype(np.float64) ** 2).sum())
+    dev = int(math.sqrt(ss / n))
+    return mean, dev
+
 
 def spmd_coverage_insert(mesh, recs: BamRecords, min_mapq: int,
                          read_pair_used: int):
@@ -680,8 +1094,6 @@ def spmd_run_pipeline(mesh, ref_fa: str, bam: str, prefix: str,
     force_device_extend only keeps the reference's signature.  index: a
     prebuilt k-mer index of ref_fa.  Returns {"stages_s", "aligner",
     "sv"}."""
-    from ..align.engine import TorchBatchAligner
-    from ..pipeline.driver import native_stage
     dev = mesh_device(mesh)
     stages: dict = {}
     t0 = time.perf_counter()
@@ -697,7 +1109,7 @@ def spmd_run_pipeline(mesh, ref_fa: str, bam: str, prefix: str,
         t = time.perf_counter()
         if index is None:
             index = Aligner.from_fasta(ref_fa).idx
-        aligner = TorchBatchAligner(index, device=dev)
+        aligner = BatchAligner(index, device=dev)
         aligner.shard_mesh = mesh
         stages["index"] = time.perf_counter() - t
         t = time.perf_counter()

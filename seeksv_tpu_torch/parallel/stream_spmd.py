@@ -3,7 +3,7 @@
 Counterpart of ``seeksv_tpu/parallel/stream_spmd.py``.  The BAM is
 decoded once in slabs (``scan_bam``); per slab, on every rank:
 
-  * ``SpmdGetclipStream`` (with ``mesh_consensus=True``) — the reference's
+  * ``SpmdGetclipStream`` (with ``mesh_consensus=True``) — the
     slab-incremental getclip, its consensus merge at each chromosome
     flush on the mesh (``spmd_pipeline.mesh_consensus``, K5); otherwise
     the host ``GetclipStream``.
@@ -24,41 +24,73 @@ from __future__ import annotations
 
 import io
 import time
-from typing import Optional
+import gzip
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from seeksv_tpu.align.engine import Aligner
-from seeksv_tpu.align.index import KmerIndex
-from seeksv_tpu.io.bam import BamRecords, OP_H
-from seeksv_tpu.pipeline.driver import realign_clips
-from seeksv_tpu.pipeline.getclip import GetclipStream
-from seeksv_tpu.pipeline.getsv import (DepthQuery, DiscordantCounter,
-                                       SV_HEADER, output_breakpoints)
-from seeksv_tpu.pipeline.stream import scan_bam
-
+from ..align.engine import Aligner, BatchAligner
+from ..align.index import KmerIndex
+from ..io import native
+from ..io.bam import (BamRecords, FDUP, FMUNMAP, FPAIRED, FPROPER_PAIR,
+                      FUNMAP, OP_H, OP_S)
 from ..ops import coverage as cov_ops
-from ._shared import stream_spmd as _ref
+from ..pipeline.driver import native_stage, realign_clips
+from ..pipeline.getclip import (GetclipStream, _get_sclip_read,
+                                _map_len_no_x, _store_unmapped)
+from ..pipeline.getsv import (DepthQuery, DiscordantCounter, SV_HEADER,
+                              output_breakpoints)
+from ..pipeline.stream import LightBam, _GrowCols, scan_bam
 from .mesh import agree, all_gather, all_reduce_sum, mesh_device, shard_index
-from .spmd_pipeline import (HIST_SIZE, _insert_columns, is_writer,
+from .spmd_pipeline import (HIST_SIZE, _flat_segments, _insert_columns,
+                            _insert_stats_from_hist, is_writer,
                             merge_junction_sharded, mesh_consensus,
                             rank_prefix, spmd_build_junctions,
                             spmd_discordant_counts_sharded, write_rescue_fastq,
                             write_segment)
 
 
-class SpmdGetclipStream(_ref.SpmdGetclipStream):
-    """The reference's slab-incremental getclip (stream_spmd.py:55-167)
-    with each chromosome flush's consensus merge on the torch mesh.
-    Every rank must process the same slabs."""
+class _SideSink:
+    """Ordered per-position event lists for one clip side of the live
+    chromosome (insertion order preserved — the consensus merge is
+    order-sensitive, ref InsertSeq clip_reads.cpp:260)."""
+
+    def __init__(self):
+        self.by_pos: Dict[int, list] = {}
+
+    def insert(self, pos, s_l, q_l, s_r, q_r, cigar, limit, left_clipped):
+        self.by_pos.setdefault(int(pos), []).append(
+            (int(pos), s_l, q_l, s_r, q_r, list(cigar)))
+
+
+class SpmdGetclipStream:
+    """Slab-incremental getclip (the flush/drop quirks of
+    pipeline.getclip.GetclipStream) with each chromosome flush's
+    consensus merge on the torch mesh (K5).  process(slab) in file order
+    == the whole-file spmd_getclip pass.  Every rank must process the
+    same slabs."""
 
     def __init__(self, mesh, prefix: str, threshold: float = 0.85,
                  min_mapq: int = 20, save_low_quality: bool = False,
                  log=lambda *a: None):
-        super().__init__(mesh, prefix, threshold, min_mapq,
-                         save_low_quality)
+        self.mesh = mesh
         self.log = log
+        self.threshold = threshold
+        self.min_mapq = min_mapq
+        self.save_low_quality = save_low_quality
+        self.soft_out = gzip.open(f"{prefix}.clip.gz", "wt", compresslevel=1)
+        self.fq_out = gzip.open(f"{prefix}.clip.fq.gz", "wt", compresslevel=1)
+        # binary: _store_unmapped writes bytes
+        self.un1 = gzip.open(f"{prefix}.unmapped_1.fq.gz", "wb",
+                             compresslevel=1)
+        self.un2 = gzip.open(f"{prefix}.unmapped_2.fq.gz", "wb",
+                             compresslevel=1)
+        self.left = _SideSink()
+        self.right = _SideSink()
+        self.id2seq_qual: Dict[bytes, tuple] = {}
+        self.last_tid = 0
+        self.ref_names: List[str] = []
 
     def _flush(self, tid: int) -> None:
         chrom = (self.ref_names[tid] if 0 <= tid < len(self.ref_names)
@@ -76,16 +108,85 @@ class SpmdGetclipStream(_ref.SpmdGetclipStream):
         self.left.by_pos.clear()
         self.right.by_pos.clear()
 
+    def process(self, recs: BamRecords) -> None:
+        self.ref_names = recs.ref_names
+        flag = recs.flag
+        unmapped_any = (flag & (FUNMAP | FMUNMAP)) != 0
+        mapped = ~unmapped_any
+        first_op = recs.first_op()
+        last_op = recs.last_op()
+        has_hard = (first_op == OP_H) | (last_op == OP_H)
+        clip_candidate = (mapped & ~has_hard
+                          & ((first_op == OP_S) | (last_op == OP_S))
+                          & (recs.mapq >= self.min_mapq)
+                          & ((flag & FDUP) == 0))
+        first_len = recs.first_len()
+        last_len = recs.last_len()
+        map_len = _map_len_no_x(recs)
 
-class SpmdStreamStats(_ref.SpmdStreamStats):
-    """The reference's streaming statistics (stream_spmd.py:177-445) with
-    the coverage diff and the insert-size histogram on the torch mesh;
-    ``insert_size``, ``light`` and the host routing of the coverage
-    points (``_scatter_points``) are the reference's.  Every rank must
-    process the same slabs."""
+        for i in np.nonzero(unmapped_any)[0]:
+            _store_unmapped(recs, int(i), self.id2seq_qual, self.un1,
+                            self.un2)
+
+        mapped_idx = np.nonzero(mapped)[0]
+        if len(mapped_idx):
+            mtids = recs.tid[mapped_idx]
+            run_starts = np.concatenate(
+                [[0], np.nonzero(mtids[1:] != mtids[:-1])[0] + 1,
+                 [len(mtids)]])
+            for r in range(len(run_starts) - 1):
+                s, e = int(run_starts[r]), int(run_starts[r + 1])
+                tid = int(mtids[s])
+                if tid != self.last_tid:
+                    self._flush(self.last_tid)
+                    self.last_tid = tid
+                    s += 1  # quirk: flush-triggering record is dropped
+                run = mapped_idx[s:e]
+                for i in run[clip_candidate[run]]:
+                    _get_sclip_read(recs, int(i), self.left, self.right,
+                                    self.threshold, self.save_low_quality,
+                                    first_op, last_op, first_len, last_len,
+                                    map_len)
+
+    def close(self) -> None:
+        self._flush(self.last_tid)
+        self.soft_out.close()
+        self.fq_out.close()
+        self.un1.close()
+        self.un2.close()
+
+
+class SpmdStreamStats:
+    """Streaming statistics with the coverage diff and the insert-size
+    histogram on the torch mesh (see module docstring): the coverage
+    accumulates as a genome-sharded diff, each slab's segment endpoints
+    becoming +-1 points that the owner rank scatter-adds into its slice
+    (no collective per slab, no replicated genome copies).  Every rank
+    must process the same slabs."""
+
+    def __init__(self, mesh, min_mapq: int, read_pair_used: int):
+        self.mesh = mesh
+        self.min_mapq = min_mapq
+        self.read_pair_used = read_pair_used
+        self.ref_names: List[str] = []
+        self.ref_lens: List[int] = []
+        self.n = 0
+        self._acc = None          # this rank's genome slice, int32 diff
+        self._offsets = None
+        self._g_pad = 0
+        self._g_local = 0         # genome slice per rank
+        self._hist = np.zeros(HIST_SIZE, np.int64)
+        self._base = 0            # qualifying records seen so far (first-N)
+        self._cols = _GrowCols(("pos", "mpos", "mtid", "l_qseq", "flag",
+                                "mapq", "isize", "tid", "end", "hard"))
+        self._pend_pts: list = []
+        self._pend_val: list = []
+        self._pend_n = 0
+
+    def reserve_hint(self, n_records: int) -> None:
+        self._cols.hint(n_records)
 
     def process(self, recs: BamRecords) -> None:
-        from seeksv_tpu.io import native
         self.ref_names = recs.ref_names
         self.ref_lens = list(recs.ref_lens)
         self.n += recs.n
@@ -135,6 +236,20 @@ class SpmdStreamStats(_ref.SpmdStreamStats):
             l_qseq=recs.l_qseq, flag=recs.flag, mapq=recs.mapq,
             isize=recs.isize, tid=recs.tid, end=end, hard=hard)
 
+    def _scatter_points(self, recs: BamRecords) -> None:
+        st, en = _flat_segments(recs, self.min_mapq, self._offsets,
+                                self._g_pad)
+        pts = np.concatenate([st, en])
+        val = np.empty(2 * len(st), np.int32)
+        val[:len(st)] = 1
+        val[len(st):] = -1
+        inb = pts < self._g_pad
+        self._pend_pts.append(pts[inb])
+        self._pend_val.append(val[inb])
+        self._pend_n += int(inb.sum())
+        if self._pend_n >= 16_000_000:
+            self._flush_points()
+
     def _flush_points(self) -> None:
         """Scatter-add the buffered points of this rank's genome slice
         into its diff (local: no collective)."""
@@ -161,6 +276,34 @@ class SpmdStreamStats(_ref.SpmdStreamStats):
         return {t: cum[int(self._offsets[t]):int(self._offsets[t + 1])]
                 for t in range(len(self.ref_names))}
 
+    def insert_size(self):
+        """Exact cluster.cpp:15-83 stats from the mesh-summed histogram,
+        with host-side spill for isize >= HIST_SIZE (the LightBam columns hold
+        every record's exact isize)."""
+        isize = self._cols.view("isize")
+        flag = self._cols.view("flag").astype(np.int32)
+        mapq = self._cols.view("mapq").astype(np.int32)
+        hard = self._cols.view("hard")
+        ok = ((mapq >= self.min_mapq) & ((flag & FPAIRED) != 0)
+              & ((flag & FPROPER_PAIR) != 0) & ((flag & FDUP) == 0)
+              & (isize > 0) & ~hard)
+        over = isize >= HIST_SIZE
+        extra = ()
+        hist = self._hist.copy()
+        if (ok & over).any():
+            rank = np.cumsum(ok) - 1
+            taken_over = ok & over & (rank < self.read_pair_used)
+            extra = isize[taken_over].astype(np.int64)
+            hist[HIST_SIZE - 1] -= len(extra)
+        return _insert_stats_from_hist(hist, extra)
+
+    def light(self) -> LightBam:
+        v = self._cols.view
+        return LightBam(self.ref_names, self.ref_lens, self.n,
+                        v("pos"), v("mpos"), v("mtid"), v("l_qseq"),
+                        v("flag"), v("mapq"), v("isize"), v("tid"),
+                        v("end"), v("hard"))
+
 
 def spmd_run_pipeline_streaming(mesh, ref_fa: str, bam: str, prefix: str, *,
                                 chunk_records: int = 2_000_000,
@@ -177,8 +320,6 @@ def spmd_run_pipeline_streaming(mesh, ref_fa: str, bam: str, prefix: str, *,
     consensus on the mesh (K5), False on the host's native kernels.
     Every rank of the mesh calls it with the same arguments.  Returns
     {"stages_s", "aligner", "sv"}."""
-    from ..align.engine import TorchBatchAligner
-    from ..pipeline.driver import native_stage
     dev = mesh_device(mesh)
     stages: dict = {}
     t0 = time.perf_counter()
@@ -196,7 +337,7 @@ def spmd_run_pipeline_streaming(mesh, ref_fa: str, bam: str, prefix: str, *,
         t = time.perf_counter()
         if index is None:
             index = Aligner.from_fasta(ref_fa).idx
-        aligner = TorchBatchAligner(index, device=dev)
+        aligner = BatchAligner(index, device=dev)
         aligner.shard_mesh = mesh
         stages["index"] = time.perf_counter() - t
         t = time.perf_counter()

@@ -1,30 +1,336 @@
-"""Streaming ``run`` (``run --stream``) on a torch device.
+"""Streaming, bounded-memory pipeline execution (``run --stream``) on a torch
+device.  Counterpart of ``seeksv_tpu/pipeline/stream.py``.
 
-Counterpart of ``seeksv_tpu/pipeline/stream.py:run_pipeline_streaming``:
-each BAM is decoded once in ``chunk_records`` slabs that feed getclip and
-the getsv statistics together (``scan_bam``, ``GetclipStream`` and
-``StreamStats`` are the reference's, imported), then the clip fastq is
-realigned in chunks of 200,000 reads by a ``TorchBatchAligner``, and
-getsv [+ somatic] run on the streamed statistics.
+The reference bounds getclip memory with per-chromosome flushes
+(ref: clip_reads.h:423-446) but getsv still random-accesses the whole
+original BAM through the BAI index (getsv.cpp:1027 bam_iter_query,
+bam2depth.cpp:75 pileup).  This module is the framework's explicit memory
+contract for whole-genome scale: the BAM is decoded ONCE in bounded slabs
+(io.bam.read_bam_chunks) and every consumer of the original records is fed
+from that single pass —
+
+  * getclip         -> pipeline.getclip.GetclipStream (slab-incremental),
+  * insert-size     -> first-N proper-pair accumulation (cluster.cpp:15-83),
+  * depth           -> per-tid coverage diff accumulation (bam2depth.cpp:75),
+  * discordant pairs-> compact per-record columns (LightBam) retained in
+                       RAM: ~26 bytes/record instead of the full record
+                       (~2 bytes/base seq+qual + cigars + qnames), a >10x
+                       reduction that makes 30x whole-genome runs fit.
+
+Peak RSS = decode slab (chunk_records full records) + coverage arrays
+(4 bytes/ref bp) + LightBam columns (~26 bytes/record) + getclip's live
+per-chromosome breakpoint maps.  Parity: stream-vs-whole byte equality is
+asserted by tests/test_torch_stream.py and tests/test_torch_host_parity.py.
+
+``run_pipeline_streaming`` realigns the clip fastq in chunks of 200,000
+reads on a ``BatchAligner`` and runs getsv [+ somatic] on the streamed
+statistics.
 """
 from __future__ import annotations
 
 import io
 import time
-from typing import Optional
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from seeksv_tpu.align.engine import Aligner
-from seeksv_tpu.align.index import KmerIndex
-from seeksv_tpu.pipeline.driver import realign_clips
-from seeksv_tpu.pipeline.getclip import GetclipStream
-from seeksv_tpu.pipeline.getsv import getsv
-from seeksv_tpu.pipeline.somatic import somatic, somatic_filter
-from seeksv_tpu.pipeline.stream import StreamStats, scan_bam
+from ..align.engine import Aligner, BatchAligner
+from ..align.index import KmerIndex
+from ..io.bam import (BamRecords, FDUP, FPAIRED, FPROPER_PAIR, OP_H,
+                      read_bam_chunks)
+from .driver import native_stage, realign_clips
+from .getclip import GetclipStream
+from .getsv import depth_segments, getsv
+from .somatic import somatic, somatic_filter
 
-from ..align.engine import TorchBatchAligner
-from .driver import native_stage
+
+@dataclass
+class LightBam:
+    """Compact column view of a whole BAM: exactly the fields
+    DiscordantCounter needs (ref FindDiscordantReadPairs inputs,
+    getsv.cpp:990-1120), with `end` (bam_calend) and `hard` (leading or
+    trailing hard clip) precomputed from the cigars during streaming so
+    the cigars themselves need not be retained."""
+    ref_names: List[str]
+    ref_lens: List[int]
+    n: int
+    pos: np.ndarray     # int32
+    mpos: np.ndarray    # int32
+    mtid: np.ndarray    # int32
+    l_qseq: np.ndarray  # int32
+    flag: np.ndarray    # uint16
+    mapq: np.ndarray    # uint8
+    isize: np.ndarray   # int32
+    tid: np.ndarray     # int32
+    end: np.ndarray     # int32: pos + ref_span (bam_calend)
+    hard: np.ndarray    # bool
+
+
+class _GrowCols:
+    """Preallocated growable SoA columns (doubling): appending slab
+    columns writes into one resident buffer, so finalizing is a zero-copy
+    slice instead of a concatenate of every slab's columns."""
+
+    _DTYPES = dict(flag=np.uint16, mapq=np.uint8, hard=bool)
+
+    def __init__(self, names):
+        self.names = names
+        self.cap = 0
+        self.n = 0
+        self.buf: Dict[str, np.ndarray] = {}
+
+    def _reserve(self, extra: int) -> None:
+        need = self.n + extra
+        if need <= self.cap:
+            return
+        new_cap = max(need, self.cap * 2, 4_000_000)
+        for k in self.names:
+            dt = self._DTYPES.get(k, np.int32)
+            nb = np.empty(new_cap, dt)
+            if self.n:
+                nb[:self.n] = self.buf[k][:self.n]
+            self.buf[k] = nb
+        self.cap = new_cap
+
+    def hint(self, n_records: int) -> None:
+        """Pre-size the buffers (untouched pages cost nothing; doubling
+        regrowth at the GB scale costs seconds of page faults on this
+        host).  Call before the first append."""
+        if self.n == 0 and n_records > self.cap:
+            self._reserve(n_records)
+
+    def append(self, **cols) -> None:
+        m = len(next(iter(cols.values())))
+        self._reserve(m)
+        for k, v in cols.items():
+            self.buf[k][self.n:self.n + m] = v
+        self.n += m
+
+    def view(self, k: str) -> np.ndarray:
+        return self.buf[k][:self.n] if self.buf else \
+            np.zeros(0, self._DTYPES.get(k, np.int32))
+
+
+class StreamStats:
+    """Single-pass accumulator over BamRecords slabs for everything getsv
+    and somatic need from the original BAM (see module docstring).
+    process() every slab in file order, then finalize() once."""
+
+    def __init__(self, min_mapq: int, read_pair_used: int):
+        self.min_mapq = min_mapq
+        self.read_pair_used = read_pair_used
+        self._isize_parts: List[np.ndarray] = []
+        self._isize_count = 0
+        self._cov_diff: Dict[int, np.ndarray] = {}
+        # native fused path: one flat diff buffer over the whole genome
+        # (chromosome t owns [tid_base[t], tid_base[t]+len+1))
+        self._flat_diff: Optional[np.ndarray] = None
+        self._tid_base: Optional[np.ndarray] = None
+        self._cols = _GrowCols(("pos", "mpos", "mtid", "l_qseq", "flag",
+                                "mapq", "isize", "tid", "end", "hard"))
+        self.ref_names: List[str] = []
+        self.ref_lens: List[int] = []
+        self.n = 0
+
+    def reserve_hint(self, n_records: int) -> None:
+        self._cols.hint(n_records)
+
+    def process(self, recs: BamRecords) -> None:
+        from ..io import native
+        self.ref_names = recs.ref_names
+        self.ref_lens = list(recs.ref_lens)
+        self.n += recs.n
+
+        # end (bam_calend) + hard in one threaded native pass; the numpy
+        # fallback pays a cumsum over the slab's cigar stream plus several
+        # gathers
+        if native.stream_end_hard_available():
+            end, hard = native.stream_end_hard(recs)
+        else:
+            first_op = recs.first_op()
+            last_op = recs.last_op()
+            has_cigar = recs.cig_off[1:] > recs.cig_off[:-1]
+            hard = has_cigar & ((first_op == OP_H) | (last_op == OP_H))
+            end = recs.pos + recs.ref_span(count_x=True)
+
+        # insert-size model: first N qualifying records in file order
+        # (ref: cluster.cpp:25-56)
+        if self._isize_count < self.read_pair_used:
+            ok = ((recs.mapq >= self.min_mapq)
+                  & ((recs.flag & FPAIRED) != 0)
+                  & ((recs.flag & FPROPER_PAIR) != 0)
+                  & ((recs.flag & FDUP) == 0) & (recs.isize > 0) & ~hard)
+            vals = recs.isize[ok]
+            self._isize_parts.append(np.asarray(vals, np.int32))
+            self._isize_count += len(vals)
+
+        # coverage diffs per tid (ref: bam2depth.cpp:75-129): single fused
+        # native pass over the SoA when built; numpy segment expansion
+        # otherwise (identical totals, tests/test_stream.py)
+        if native.depth_diff_soa_available():
+            if self._flat_diff is None:
+                lens = np.asarray(recs.ref_lens, np.int64)
+                self._tid_base = np.concatenate(
+                    [[0], np.cumsum(lens + 1)])[:-1]
+                self._flat_diff = np.zeros(int((lens + 1).sum()), np.int32)
+            native.depth_diff_soa(recs, self.min_mapq, self._tid_base,
+                                  self._flat_diff)
+        else:
+            seg_start, seg_end, seg_tid = depth_segments(recs, self.min_mapq)
+            for t in np.unique(seg_tid):
+                t = int(t)
+                L = int(recs.ref_lens[t])
+                sel = seg_tid == t
+                d = native.coverage_diff(seg_start[sel], seg_end[sel],
+                                         np.ones(int(sel.sum()), np.int32),
+                                         L)
+                acc = self._cov_diff.get(t)
+                if acc is None:
+                    self._cov_diff[t] = d
+                else:
+                    acc += d
+
+        # compact discordant-counting columns, copied into the resident
+        # growable buffers (the slab's arrays are zero-copy views into the
+        # native decoder's buffers, freed when the slab is dropped).
+        self._cols.append(
+            pos=recs.pos, mpos=recs.mpos, mtid=recs.mtid,
+            l_qseq=recs.l_qseq, flag=recs.flag, mapq=recs.mapq,
+            isize=recs.isize, tid=recs.tid, end=end, hard=hard)
+
+    def insert_size(self) -> Tuple[int, int]:
+        """Exact calculate_insert_size semantics over the accumulated
+        first-N values (integer mean, truncated-int deviation;
+        ref: cluster.cpp:15-83)."""
+        import math
+        if self._isize_parts:
+            vals = np.concatenate(self._isize_parts)[:self.read_pair_used]
+        else:
+            vals = np.zeros(0, np.int32)
+        if len(vals) == 0:
+            return 0, 0
+        vals = vals.astype(np.int64)
+        mean = int(vals.sum() // len(vals))
+        dev = int(math.sqrt(
+            float(((vals - mean).astype(np.float64) ** 2).sum()) / len(vals)))
+        return mean, dev
+
+    def coverage(self) -> Dict[int, np.ndarray]:
+        """Per-tid depth arrays (= pipeline.getsv.compute_coverage on the
+        whole file)."""
+        from ..io.native import cumsum_i32
+        out: Dict[int, np.ndarray] = {}
+        for t in range(len(self.ref_names)):
+            L = int(self.ref_lens[t])
+            if self._flat_diff is not None:
+                b = int(self._tid_base[t])
+                out[t] = cumsum_i32(self._flat_diff[b:b + L + 1])[:L]
+                continue
+            d = self._cov_diff.get(t)
+            if d is None:
+                out[t] = np.zeros(L, np.int32)
+            else:
+                out[t] = cumsum_i32(d)[:L]
+        return out
+
+    def light(self) -> LightBam:
+        v = self._cols.view
+        return LightBam(self.ref_names, self.ref_lens, self.n,
+                        v("pos"), v("mpos"), v("mtid"), v("l_qseq"),
+                        v("flag"), v("mapq"), v("isize"), v("tid"),
+                        v("end"), v("hard"))
+
+
+def scan_bam(bam_path: str, chunk_records: int,
+             consumers: list, prefetch: bool = True,
+             lazy_seq: bool = True) -> None:
+    """One decode pass feeding every consumer (objects with .process(recs));
+    slabs are dropped after each round, bounding memory to two slabs +
+    consumer state.
+
+    prefetch=True decodes slab k+1 on a background thread while the
+    consumers process slab k: the native decoder (ctypes -> C++ threads)
+    releases the GIL, so decode wall-clock overlaps the Python/numpy
+    consumer work.
+
+    lazy_seq=True skips base decode for unclipped fully-mapped records
+    (GetclipStream/StreamStats never read those bases; pass False for
+    consumers that read every record's seq/qual)."""
+    import os
+    # record-count estimate from the compressed size (~23 B/record at
+    # 100 bp reads): lets accumulators pre-size instead of doubling
+    try:
+        est = os.path.getsize(bam_path) // 16
+    except OSError:
+        est = 0
+    if est:
+        for cns in consumers:
+            h = getattr(cns, "reserve_hint", None)
+            if h is not None:
+                h(est)
+    if not prefetch:
+        for recs in read_bam_chunks(bam_path, chunk_records,
+                                    lazy_seq=lazy_seq):
+            for cns in consumers:
+                cns.process(recs)
+        return
+    import queue
+    import threading
+    q: "queue.Queue" = queue.Queue(maxsize=1)
+    _SENTINEL = object()
+    stop = threading.Event()
+
+    def producer():
+        try:
+            for recs in read_bam_chunks(bam_path, chunk_records,
+                                        lazy_seq=lazy_seq):
+                if stop.is_set():  # consumer raised: abandon the decode
+                    return
+                q.put(recs)
+            q.put(_SENTINEL)
+        except BaseException as e:  # surfaced in the consumer loop
+            q.put(e)
+
+    th = threading.Thread(target=producer, daemon=True)
+    th.start()
+    # SEEKSV_STREAM_PROFILE=1: per-consumer + queue-wait seconds on
+    # stderr at end of pass (decode wall hides under consumer work when
+    # prefetch overlaps well; queue-wait ~= non-overlapped decode)
+    prof = os.environ.get("SEEKSV_STREAM_PROFILE")
+    t_wait = 0.0
+    t_cons = [0.0] * len(consumers)
+    try:
+        import time as _time
+        while True:
+            t0 = _time.perf_counter()
+            item = q.get()
+            t_wait += _time.perf_counter() - t0
+            if item is _SENTINEL:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            for ci, cns in enumerate(consumers):
+                t0 = _time.perf_counter()
+                cns.process(item)
+                t_cons[ci] += _time.perf_counter() - t0
+            del item  # drop the slab before blocking on the next one
+        if prof:
+            import sys as _sys
+            print(f"# scan_bam profile: queue_wait={t_wait:.2f}s " +
+                  " ".join(f"{type(c).__name__}={t:.2f}s"
+                           for c, t in zip(consumers, t_cons)),
+                  file=_sys.stderr)
+    finally:
+        # stop + unblock a producer stuck on put() if the consumer raised
+        stop.set()
+        while th.is_alive():
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                pass
+            th.join(timeout=0.05)
 
 
 def run_pipeline_streaming(ref_fa: str, bam: str, prefix: str, *,
@@ -57,7 +363,7 @@ def run_pipeline_streaming(ref_fa: str, bam: str, prefix: str, *,
     t = time.perf_counter()
     if index is None:
         index = Aligner.from_fasta(ref_fa).idx
-    aligner = TorchBatchAligner(index, device=device)
+    aligner = BatchAligner(index, device=device)
     stages["index"] = time.perf_counter() - t
     t = time.perf_counter()
     realign_clips(ref_fa, f"{prefix}.clip.fq.gz", f"{prefix}.clip.sam",

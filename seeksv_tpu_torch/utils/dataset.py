@@ -21,11 +21,9 @@ import time
 
 import numpy as np
 
-from seeksv_tpu.io.bai import build_index
-from seeksv_tpu.utils.simulate import (build_donor, mutate, random_genome,
-                                       simulate_reads, write_fasta)
-
-from .._build import ensure_native
+from ..io.bai import build_index
+from .simulate import (build_donor, mutate, random_genome, simulate_reads,
+                       write_fasta)
 
 
 def build_dataset(root, G, cov, read_len, seed, n_events, with_repeats,
@@ -41,7 +39,6 @@ def build_dataset(root, G, cov, read_len, seed, n_events, with_repeats,
     done = os.path.join(root, ".done")
     if os.path.exists(done):
         return paths
-    ensure_native()      # the simulator's BAM writer uses the C++ kernels
     rng = np.random.default_rng(seed)
     g = random_genome(rng, G)
     if with_repeats:

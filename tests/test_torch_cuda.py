@@ -60,9 +60,68 @@ def test_extend_matches_plain(cuda, reverse, LQ):
     got = ext.extend_batch_resident(*args, G, LQ, LT, reverse)
     want = ext.extend_batch_resident_plain(*args, G, LQ, LT, reverse)
     torch.cuda.synchronize()
-    assert ext.LAUNCHES["extend_left" if reverse else "extend_right"] == n0 + 1
+    # one kernel launch per bin of the bucket
+    assert ext.bin_launches(LQ) == {32: 1, 512: 3, 1024: 4, 1536: 5}[LQ]
+    assert ext.LAUNCHES["extend_left" if reverse else "extend_right"] \
+        == n0 + ext.bin_launches(LQ)
     for k in ext.KEYS:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("LQ", [1024, 2048])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_extend_mixed_bins_match_plain(cuda, reverse, LQ):
+    """One batch that mixes every query-length bin of the kernel's
+    dispatch (each edge - 1, edge, edge + 1, qlen 0 and 1, queries past
+    the widest bin at LQ 2048), two jobs whose qlen lies past the bucket
+    LQ (LQ cells, no cell qlen), tlen = 0 slots and windows off both
+    genome ends, through both entries: results at the jobs' own indices."""
+    from torch_inputs import extend_batch_binned_plain
+    rng = np.random.default_rng(LQ + reverse)
+    G = 300_001
+    genome, refp = _packed_genome(rng, G)
+    edges = sorted(x for x in {e + d for e in ext.BIN_EDGES
+                               for d in (-1, 0, 1)} | {0, 1, LQ} if x <= LQ)
+    B, LT = 400, LQ + 128
+    qlen = rng.integers(1, LQ + 1, B).astype(np.int32)
+    qlen[20:20 + len(edges)] = edges
+    qlen[13:15] = LQ
+    tlen = np.minimum(qlen + 100, LT).astype(np.int32)
+    tlen[:8] = 0
+    start = rng.integers(LQ, G - LQ, B).astype(np.int32)
+    start[8:12] = [0, 1, G - 1, G - 2]
+    h0 = rng.integers(19, 60, B).astype(np.int32)
+    q = rng.integers(0, 4, (B, LQ)).astype(np.uint8)
+    for b in range(0, B, 4):
+        q[b] = rng.integers(0, 4, LQ)
+    for b in range(B):
+        if b % 4:
+            s = int(start[b])
+            w = genome[max(s - LQ + 1, 0):s + 1][::-1] if reverse \
+                else genome[s:s + LQ]
+            q[b, :len(w)] = w
+    q[rng.random((B, LQ)) < 0.03] = rng.integers(0, 4)
+    q[np.arange(LQ)[None, :] >= qlen[:, None]] = 4
+    qlen[13:15] = [LQ + 1, LQ + 900]
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (ext.pack_nibbles(q), qlen, start, tlen, h0, refp)]
+    got = ext.extend_batch_resident(*args, G, LQ, LT, reverse)
+    want = ext.extend_batch_resident_plain(*args, G, LQ, LT, reverse)
+    tq = torch.from_numpy(q).to(cuda)
+    tt = ext.gather_ref_windows(args[5], G, args[2], args[3], LT,
+                                reverse).to(torch.uint8)
+    gotw = ext.extend_batch(tq, args[1], tt, args[3], args[4])
+    binned = extend_batch_binned_plain(tq, args[1], tt, args[3], args[4])
+    torch.cuda.synchronize()
+    for k in ext.KEYS:
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(gotw[k], want[k]), f"windows {k}"
+        assert torch.equal(binned[k], want[k]), f"binned plain {k}"
+    assert int(want["max_score"][13]) > 60
+    assert int(want["gscore"][13]) == ext.NEG_INF
+    order, seg = ext.plan_bins(args[1], args[3], LQ)
+    assert sorted(order.tolist()) == list(range(B))
+    assert (torch.diff(seg) > 0).sum() >= len(ext.BIN_EDGES)
 
 
 def _pairs(rng, B, LQ, w, K):
@@ -162,7 +221,7 @@ def test_extend_windows_matches_plain(cuda, LQ):
     got = ext.extend_batch(*args)
     want = ext.extend_batch_plain(*args)
     torch.cuda.synchronize()
-    assert ext.LAUNCHES["extend_windows"] == n0 + 1
+    assert ext.LAUNCHES["extend_windows"] == n0 + ext.bin_launches(LQ)
     for key in ext.KEYS:
         assert torch.equal(got[key], want[key]), key
     assert int((got["max_score"] > 50).sum()) > B // 4

@@ -143,9 +143,9 @@ def test_cuda_finalize_without_native_library_raises(genome_fa, monkeypatch):
     """Without the native host library a CUDA aligner raises instead of
     finalizing every read on the host; force_host and the CPU device keep
     the reference's per-read host finalize."""
-    from seeksv_tpu.io import native
+    from seeksv_tpu_torch.io import native
     fa, _ = genome_fa
-    idx = BatchAligner.from_fasta(fa, cache=False).idx
+    idx = TorchBatchAligner.from_fasta(fa, cache=False, device="cpu").idx
     monkeypatch.setattr(native, "sw_global_batch_available", lambda: False)
     codes = np.array([0, 1, 2, 3], np.uint8)
     args = ([(codes, 3 - codes[::-1])], [b"ACGT"], {0: []})

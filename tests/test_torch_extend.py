@@ -201,3 +201,116 @@ def test_window_wrapper_rejects_bad_inputs():
         ext.extend_batch(q, i32, t[:, ::2], i32, i32)
     with pytest.raises(ValueError):
         ext.extend_batch(q[0], i32, t, i32, i32)
+
+
+# ---- the CUDA kernel's dispatch (plan_bins), with the plain version in
+# ---- the kernel's place
+
+def _bin_jobs(seed, qlens, LQ, slack=24):
+    """One job per entry of qlens: a target that holds the query with 8 %
+    substitutions (so extensions run long), every fifth query random, two
+    slots with tlen = 0."""
+    rng = np.random.default_rng(seed)
+    B = len(qlens)
+    LT = LQ + slack
+    qlen = np.asarray(qlens, np.int32)
+    tlen = np.minimum(qlen + slack, LT).astype(np.int32)
+    q = np.full((B, LQ), 4, np.uint8)
+    t = np.full((B, LT), 4, np.uint8)
+    for b in range(B):
+        tc = rng.integers(0, 4, tlen[b]).astype(np.uint8)
+        qc = tc[:qlen[b]].copy()
+        mut = rng.random(qlen[b]) < 0.08
+        qc[mut] = rng.integers(0, 4, int(mut.sum()))
+        if b % 5 == 4:
+            qc = rng.integers(0, 4, qlen[b]).astype(np.uint8)
+        q[b, :qlen[b]] = qc
+        t[b, :tlen[b]] = tc
+    if B > 8:
+        tlen[[2, B - 2]] = 0
+    h0 = rng.integers(19, 50, B).astype(np.int32)
+    return q, qlen, t, tlen, h0
+
+
+def _edge_cases():
+    cases = {"mixed": [0, 1, 5, 127, 128, 129, 200, 255, 256, 257, 400, 511,
+                       512, 513, 700, 1023, 1024, 3, 64, 130, 300, 600, 1000]}
+    for edge in ext.BIN_EDGES:
+        for d in (-1, 0, 1):
+            if edge + d <= 1024:
+                cases[f"edge{edge}{d:+d}"] = [edge + d, 7, edge + d]
+    cases["past_widest"] = [1025, 1100, 1536, 9, 1024, 130]
+    return cases
+
+
+@pytest.mark.parametrize("name", sorted(_edge_cases()))
+def test_binned_dispatch_matches_host_and_jax(name):
+    """Every qlen bin edge (edge - 1, edge, edge + 1), mixed bins in one
+    batch and queries past the widest bin: the dispatch's results, at the
+    jobs' own indices, equal extend_batch_np and the JAX sw_extend_batch;
+    order and seg describe a partition of the jobs into their bins."""
+    from seeksv_tpu.align.sw import extend_batch_np
+    from torch_inputs import extend_batch_binned_plain
+    qlens = _edge_cases()[name]
+    LQ = 1536 if name == "past_widest" else 1024
+    q, qlen, t, tlen, h0 = _bin_jobs(len(qlens) + len(name), qlens, LQ)
+    tq, tql, tt, ttl, th = (torch.from_numpy(a) for a in
+                            (q, qlen, t, tlen, h0))
+    order, seg = ext.plan_bins(tql, ttl, LQ)
+    order, seg = order.numpy(), seg.numpy()
+    assert sorted(order.tolist()) == list(range(len(qlens)))
+    assert seg[0] == 0 and seg[-1] == len(qlens) and (np.diff(seg) >= 0).all()
+    widths = (1 << 30,) + tuple(reversed(ext.BIN_EDGES))
+    for which in range(len(widths)):
+        jobs = order[seg[which]:seg[which + 1]]
+        live = (qlen[jobs] > 0) & (tlen[jobs] > 0)
+        assert (qlen[jobs][live] <= widths[which]).all()
+        if which + 1 < len(widths):     # a live job sits in its own bin
+            assert (qlen[jobs][live] > widths[which + 1]).all()
+        cost = qlen[jobs].astype(np.int64) * np.maximum(tlen[jobs], 0)
+        assert (np.diff(cost) <= 0).all()           # longest first
+    got = {k: v.numpy() for k, v in
+           extend_batch_binned_plain(tq, tql, tt, ttl, th).items()}
+    host = extend_batch_np(q.view(np.int8), qlen, t.view(np.int8), tlen, h0)
+    xla = sw_extend_batch(*(jnp.asarray(a) for a in
+                            (q.astype(np.int32), qlen, t.astype(np.int32),
+                             tlen, h0)))
+    whole = _plain(q.astype(np.int32), qlen, t.astype(np.int32), tlen, h0)
+    scored = tlen > 0     # gscore's sentinel differs between the kernels
+    for k in KEYS:
+        rows = scored if k == "gscore" else slice(None)
+        np.testing.assert_array_equal(got[k], whole[k], err_msg=k)
+        np.testing.assert_array_equal(got[k][rows], np.asarray(host[k])[rows],
+                                      err_msg=f"host {k}")
+        np.testing.assert_array_equal(got[k][rows], np.asarray(xla[k])[rows],
+                                      err_msg=f"xla {k}")
+    assert (got["max_score"][qlen > 100] > 60).any() or max(qlens) <= 100
+
+
+@pytest.mark.parametrize("LQ", [96, 512, 1024])
+def test_qlen_past_the_bucket_is_binned_as_the_bucket(LQ):
+    """A qlen past the bucket LQ has LQ cells: plan_bins puts the job in
+    the bin of LQ (a bin the call launches, counted by bin_launches), and
+    the dispatch's result is the plain version's: every cell of the row
+    scored, gscore left at NEG_INF because no cell is cell qlen."""
+    from torch_inputs import extend_batch_binned_plain
+    qlens = [LQ, 5, LQ, 40, LQ]
+    q, qlen, t, tlen, h0 = _bin_jobs(LQ, qlens, LQ)
+    qlen[[0, 4]] = [LQ + 1, LQ + 700]
+    tq, tql, tt, ttl, th = (torch.from_numpy(a) for a in
+                            (q, qlen, t, tlen, h0))
+    order, seg = ext.plan_bins(tql, ttl, LQ)
+    order, seg = order.tolist(), seg.tolist()
+    n_bins = len(ext.BIN_EDGES) + 1
+    launched = range(n_bins - ext.bin_launches(LQ), n_bins)
+    for which in range(n_bins):
+        if which not in launched:
+            assert seg[which] == seg[which + 1]
+    bin_of = {b: w for w in range(n_bins) for b in order[seg[w]:seg[w + 1]]}
+    assert bin_of[0] == bin_of[4] == bin_of[2]
+    got = extend_batch_binned_plain(tq, tql, tt, ttl, th)
+    whole = ext.extend_batch_plain(tq, tql, tt, ttl, th)
+    for k in KEYS:
+        assert torch.equal(got[k], whole[k]), k
+    assert got["gscore"][0] == ext.NEG_INF and got["gtle"][0] == 0
+    assert got["max_score"][0] > 60 or LQ < 100

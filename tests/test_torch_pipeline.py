@@ -134,8 +134,8 @@ def test_slice_runs_with_jax_blocked(dataset, tmp_path):
 def test_cuda_run_without_native_library_raises(monkeypatch, tmp_path):
     """run_pipeline on a CUDA device refuses to start when the native
     host library did not build, before it reads any input."""
-    from seeksv_tpu_torch.pipeline import driver
-    monkeypatch.setattr(driver, "ensure_native", lambda: False)
+    from seeksv_tpu_torch.io import native
+    monkeypatch.setattr(native, "available", lambda: False)
     with pytest.raises(RuntimeError, match="native host library"):
         run_pipeline(str(tmp_path / "absent.fa"), str(tmp_path / "absent.bam"),
                      str(tmp_path / "out"), device="cuda")

@@ -1,12 +1,35 @@
-"""Inputs of the consensus-scan and discordant-count tests, shared by the
-CPU tests (against the JAX package) and the card tests (against the
-plain versions).  numpy only: the card's host has no jax."""
+"""Inputs of the consensus-scan and discordant-count tests, and the
+extension kernel's dispatch with the plain version in the kernel's place,
+shared by the CPU tests (against the JAX package) and the card tests
+(against the plain versions).  No jax: the card's host has none."""
 import numpy as np
+import torch
 
 from seeksv_tpu_torch.ops import discordant as dc
+from seeksv_tpu_torch.ops import extend as ext
 
 CONSENSUS_KEYS = ("sl_seq", "sl_len", "sr_seq", "sr_len", "support",
                   "n_slots", "slot_of_read", "overflow", "src_l", "src_r")
+
+
+def extend_batch_binned_plain(q, qlen, t, tlen, h0):
+    """ops.extend.extend_batch through the CUDA kernel's dispatch with the
+    plain version in the kernel's place: each bin's jobs, in plan_bins'
+    order and at the bin's own query width, through extend_batch_plain,
+    their results written at the jobs' own indices."""
+    B, LQ = q.shape
+    order, seg = ext.plan_bins(qlen, tlen, LQ)
+    seg = seg.tolist()
+    widths = (LQ,) + tuple(reversed(ext.BIN_EDGES))
+    out = torch.empty((len(ext.KEYS), B), dtype=torch.int32, device=q.device)
+    for which, width in enumerate(widths):
+        idx = order[seg[which]:seg[which + 1]].to(torch.int64)
+        if idx.numel() == 0:
+            continue
+        res = ext.extend_batch_plain(q[idx, :min(width, LQ)], qlen[idx],
+                                     t[idx], tlen[idx], h0[idx])
+        out[:, idx] = torch.stack([res[k] for k in ext.KEYS])
+    return dict(zip(ext.KEYS, out.unbind(0)))
 
 
 def random_groups(seed, NG=24, G=12, LL=40, LR=36):

@@ -35,7 +35,7 @@ def plant_spill(recs):
 
     import numpy as np
 
-    from seeksv_tpu.io.bam import FDUP, FPAIRED, FPROPER_PAIR
+    from seeksv_tpu_torch.io.bam import FDUP, FPAIRED, FPROPER_PAIR
     recs = copy.copy(recs)
     isz = np.array(recs.isize, copy=True)
     ok = ((recs.mapq >= 20) & ((recs.flag & FPAIRED) != 0)
@@ -57,7 +57,7 @@ def main(argv):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
-    from seeksv_tpu.io.bam import read_bam
+    from seeksv_tpu_torch.io.bam import read_bam
     from seeksv_tpu_torch.parallel import spmd_pipeline as sp
     from seeksv_tpu_torch.parallel import stream_spmd as ss
     from seeksv_tpu_torch.parallel.dryrun import dryrun_multichip
