@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (seeksv_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--workdir build/chip_smoke]
+    python3 chip_smoke.py [--workdir build/chip_smoke] [--parent DIR]
 
 Phases (each prints its lines; any failure exits non-zero):
 
@@ -32,8 +32,17 @@ Phases (each prints its lines; any failure exits non-zero):
      tlen = 0 slots, random queries that z-drop early, windows running
      off both ends of the genome and a qlen past the bucket LQ, at LQ 1024
      and at LQ 2048 (queries past the widest bin);
-   - the banded direction pass at K = 128 and 256 on LQ 1024, and the
-     walk on its output;
+   - the banded direction pass at K = 128 and 256 on LQ 1024 (one launch
+     per k_real bin), and the walk on its output; the pass again at every
+     edge of its k_real bins and one column past it, the narrowest and the
+     widest band, n - m of either sign, m = 257 and m = LQ, at LQ 512,
+     1024 and 2048, and on sub-batches of one job;
+   - the consensus scan on groups of 0, 1, 2, 8, 9 and G reads and groups
+     that overflow max_slots, and on groups of 2,000 reads, whose lengths
+     and slot state are past a warp's shared memory;
+   With ``--parent DIR`` (another checkout) that checkout's banded_dir.cu
+   and consensus_scan.cu are built apart and timed in turns with this
+   one's on the same inputs; this one's must be the faster;
 3. the slice: the repo's virus-integration flagship dataset (40 Mb host
    + 12 Mb virus panel, 25x, 1 kb reads, insert mean 3000, 6,000
    integrations at 4 % divergence, error rate 0.002, seed 1) through
@@ -42,9 +51,13 @@ Phases (each prints its lines; any failure exits non-zero):
    ``device_align`` at 400,000 records per slab; the launch counters are
    reset just before each run and read just after, and each run must
    launch exactly its own set of kernels (an extension call counts one
-   launch per query-length bin of its bucket: 4 at LQ 1024).  Between the first two, K1 is
-   held against its plain version and timed beside its bound on the
-   default run's own left-round jobs, and K4 (the k-mer lookup) is held
+   launch per query-length bin of its bucket: 4 at LQ 1024; a direction
+   call one per k_real bin: 2 at K 128, 3 at K 256; a consensus call 1)
+   and no wrapper may take its plain version.  Between the first two, K1
+   is held against its plain version and timed beside its bound on the
+   default run's own left-round jobs, K2 likewise on every direction call
+   the run made (with the jobs' k_real histogram and the share that
+   reaches rung 64), and K4 (the k-mer lookup) is held
    against its plain version on the first 1,024 strand reads of the
    run's clip fastq (uint16 keys).  Then the SPMD
    pipeline on a one-rank NCCL mesh (``parallel.mesh.make_mesh``):
@@ -53,7 +66,9 @@ Phases (each prints its lines; any failure exits non-zero):
    (consensus scan) and K6 (discordant count) and no resident K1; K5 and
    K6 are then held against their plain versions, exactly, on the inputs
    of the SPMD run's first consensus call (plus 64 groups of random reads
-   that overflow max_slots = 8) and its discordant call.  Then the same
+   that overflow max_slots = 8; K5 timed as its launch alone and as the
+   whole call, each beside a bound counted from the bytes it needs) and its discordant
+   call.  Then the same
    run with the native host kernels (``force_host``): every device run's
    ``.clip.sam``, ``.sv`` and decompressed ``.clip.gz`` must be
    byte-identical to it, no chunk may overflow to host seeding, and at
@@ -66,9 +81,11 @@ fails before printing any result.  Imports no jax.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gzip
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -166,6 +183,46 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# The kernels of another checkout (--parent), timed beside this one's on
+# the same inputs in the same run: banded_dir.cu and consensus_scan.cu,
+# built apart and called through their own C entry points.
+PARENT = {"lib": None}
+
+
+def build_parent(parent):
+    """Build <parent>/seeksv_tpu_torch/csrc/{banded_dir,consensus_scan}.cu
+    into a library of its own and keep its handle in PARENT."""
+    from seeksv_tpu_torch import _build
+    out = os.path.join(HERE, "build", "chip_smoke_parent")
+    os.makedirs(out, exist_ok=True)
+    srcs = [os.path.join(parent, "seeksv_tpu_torch", "csrc", name)
+            for name in ("banded_dir.cu", "consensus_scan.cu")]
+    path = os.path.join(out, "libparent_kernels.so")
+    t0 = time.perf_counter()
+    subprocess.run([_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3",
+                    "-Xcompiler", "-fPIC", "-shared", "-o", path, *srcs],
+                   check=True)
+    lib = ctypes.CDLL(path)
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # q, t, dlo, m, n, B, LQ, LT, K, score, dirs, stream
+    lib.seeksv_banded_dir.argtypes = [P, P, P, P, P, I, I, I, I, P, P, P]
+    # seq_l, len_l, LL, seq_r, len_r, LR, n_reads, NG, G, S, num, den,
+    # support, n_slots, slot_of, overflow, src_l, src_r, stream
+    lib.seeksv_consensus_scan.argtypes = [P, P, I, P, P, I, P, I, I, I, LL,
+                                          LL, P, P, P, P, P, P, P]
+    PARENT["lib"] = lib
+    _say(f"parent kernels: {os.path.relpath(parent, HERE)} built in "
+         f"{time.perf_counter() - t0:.1f} s")
+
+
+def _parent_call(name, *args):
+    import torch
+    rc = getattr(PARENT["lib"], name)(
+        *args, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise AssertionError(f"parent {name}: CUDA error {rc}")
+
+
 def provenance(card):
     import torch
 
@@ -208,8 +265,13 @@ def provenance(card):
          f"(nvcc {_build.build_info['seconds']:.3f} s) -> "
          f"{os.path.relpath(_build.build_info['path'], HERE)}")
     for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            _say(f"  ptxas: {line.strip()}")
+        # the kernel's name and template arguments out of its mangled symbol
+        entry = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
+                          r"(I\w+?E(?=Ev))?", line)
+        if entry:
+            _say(f"  ptxas: {entry.group(1)} {entry.group(2) or ''}")
+        elif "registers" in line or "spill" in line:
+            _say(f"  ptxas:   {line.strip()}")
 
 
 def _extend_bound(qlen, plain, q_bytes_per_code, t_bytes_per_code):
@@ -487,6 +549,76 @@ def _finalize_pairs(rng, B, LQ, lim):
     return q, t, m, n
 
 
+def _direction_err(gd, dev, q, t, m, n, w, K):
+    """max_abs_err of K2 against its plain version on these jobs (score
+    and every whole row 1..m of the direction block), and the jobs per
+    k_real bin, widest first."""
+    import torch
+    LQ = q.shape[1]
+    tq, tt, tm, tn = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                      for a in (q, t, m, n))
+    td = torch.from_numpy((np.minimum(0, n - m) - w).astype(np.int32)).to(dev)
+    n0 = gd.LAUNCHES["banded_dir"]
+    score, dirs = gd.banded_direction(tq, tm, tt, td, tn, K)
+    if gd.LAUNCHES["banded_dir"] != n0 + gd.band_launches(K):
+        raise AssertionError("a direction call must count one launch per "
+                             "k_real bin")
+    ws, wdirs = gd.banded_direction_plain(
+        tq, tm, gd.build_t2(tt, tn, td, K, LQ), td, tn, K, LQ)
+    torch.cuda.synchronize()
+    rows_m = torch.arange(1, LQ + 1, device=dev)[None, :] <= tm[:, None]
+    err = _max_abs_err([(score, ws), (dirs[rows_m], wdirs[rows_m])])
+    _order, seg = gd.plan_band_bins(tm, td, tn, K)
+    return err, torch.diff(seg).tolist()
+
+
+def check_finalize_edges(dev, rng):
+    """K2 against its plain version at the edges of its k_real bins
+    (tests/torch_inputs.py:band_edge_lengths: a band of every edge's width
+    and of one column more, the narrowest and the widest band, n - m of
+    either sign up to what the rung's band holds, m = 257, m = LQ and in
+    between) at LQ 512, 1024 and 2048; and a sub-batch of one job (what
+    rung 64 gets when one job of a chunk needs it) in the narrowest and
+    the widest bin."""
+    from torch_inputs import band_edge_lengths, finalize_pairs
+
+    from seeksv_tpu_torch.ops import global_device as gd
+    for w, K in gd.TorchDeviceGlobalAligner.RUNGS:
+        for LQ in (512, 1024, 2048):
+            LT = LQ + 128
+            m, n = band_edge_lengths(w, K, LQ, LT)
+            q, t = finalize_pairs(rng, m, n, LQ, LT)
+            err, bins = _direction_err(gd, dev, q, t, m, n, w, K)
+            one = 0
+            for mm, nn in ((LQ - 5, LQ - 5), (300, 300 + K - 2 * w - 1)):
+                m1, n1 = (np.asarray([x], np.int32) for x in (mm, nn))
+                q1, t1 = finalize_pairs(rng, m1, n1, LQ, LT)
+                one = max(one, _direction_err(gd, dev, q1, t1, m1, n1, w,
+                                              K)[0])
+            k_real = sorted(set((np.abs(n - m) + 2 * w + 1).tolist()))
+            _say(f"banded_dir edges K={K} LQ={LQ}: {len(m)} jobs with "
+                 f"k_real in {k_real}, m in {sorted(set(m.tolist()))}, "
+                 f"n - m from {int((n - m).min())} to {int((n - m).max())}"
+                 f", jobs per bin (widest first) {bins}: max_abs_err={err}; "
+                 f"one-job sub-batches max_abs_err={one}")
+            if err or one or not all(bins):
+                raise AssertionError(f"banded_dir K={K} LQ={LQ} disagrees "
+                                     "at a bin edge, or a bin is empty")
+
+
+def _banded_bound(m, n, w, K):
+    """(cells, bound) of one direction call on these jobs: the band's
+    cells, m rows of min(K, |n - m| + 2w + 1) columns, at
+    BANDED_OPS_PER_CELL; bytes: q and t once, 3 ints in, the m x K
+    direction bytes and the score out."""
+    m64, n64 = m.astype(np.int64), n.astype(np.int64)
+    width = np.minimum(K, np.abs(n64 - m64) + 2 * w + 1)
+    cells = int((m64 * width).sum())
+    return cells, _bound(cells * BANDED_OPS_PER_CELL,
+                         int((m64 + n64).sum()) + len(m) * 4 * 4
+                         + int(m64.sum()) * K)
+
+
 def check_finalize(dev, rng, rows, B=4096):
     """K2 at K = 128 / 256 on LQ 1024 and K3 on K2's output, against
     their plain versions; one chunk of 4,096 jobs (the finalize's
@@ -502,36 +634,59 @@ def check_finalize(dev, rng, rows, B=4096):
     for w, K in gd.TorchDeviceGlobalAligner.RUNGS:
         td = torch.from_numpy((np.minimum(0, n - m) - w).astype(
             np.int32)).to(dev)
+        n0 = gd.LAUNCHES["banded_dir"]
         score, dirs = gd.banded_direction(tq, tm, tt, td, tn, K)
+        if gd.LAUNCHES["banded_dir"] != n0 + gd.band_launches(K):
+            raise AssertionError("a direction call must count one launch "
+                                 "per k_real bin")
         ws, wdirs = gd.banded_direction_plain(
             tq, tm, gd.build_t2(tt, tn, td, K, LQ), td, tn, K, LQ)
         torch.cuda.synchronize()
         rows_m = torch.arange(1, LQ + 1, device=dev)[None, :] <= tm[:, None]
         err = _max_abs_err([(score, ws), (dirs[rows_m], wdirs[rows_m])])
+        parent_ms = None
+        if PARENT["lib"]:
+            # the parent's kernel on the same jobs, in turns with this one
+            ps, pd = torch.empty_like(score), torch.empty_like(dirs)
+            run_parent = lambda: _parent_call(
+                "seeksv_banded_dir", tq.data_ptr(), tt.data_ptr(),
+                td.data_ptr(), tm.data_ptr(), tn.data_ptr(), B, LQ,
+                tt.shape[1], K, ps.data_ptr(), pd.data_ptr())
+            run_parent()
+            torch.cuda.synchronize()
+            err = max(err, _max_abs_err([(ps, ws),
+                                         (pd[rows_m], wdirs[rows_m])]))
+            run_new = lambda: gd.banded_direction(tq, tm, tt, td, tn, K)
+            turns = [_cuda_ms(f, 3) for f in (run_parent, run_new, run_new,
+                                              run_parent)]
+            parent_ms = [turns[0], turns[3]]
+            _say(f"banded_dir K={K} in turns: parent {turns[0]:.3f} ms, "
+                 f"this {turns[1]:.3f}, this {turns[2]:.3f}, parent "
+                 f"{turns[3]:.3f}")
+            del ps, pd
         del wdirs
         ms = _cuda_ms(lambda: gd.banded_direction(tq, tm, tt, td, tn, K), 3)
         plain_ms = _cuda_ms(lambda: gd.banded_direction_plain(
             tq, tm, gd.build_t2(tt, tn, td, K, LQ), td, tn, K, LQ), 1)
-        # the band's cells of these jobs: m rows of min(K, |n - m| + 2w + 1)
-        # columns; bytes: q and t once, 3 ints in, the m x K direction
-        # bytes and the score out
-        m64, n64 = m.astype(np.int64), n.astype(np.int64)
-        width = np.minimum(K, np.abs(n64 - m64) + 2 * w + 1)
-        cells = int((m64 * width).sum())
-        bound = _bound(cells * BANDED_OPS_PER_CELL,
-                       int((m64 + n64).sum()) + B * 4 * 4
-                       + int(m64.sum()) * K)
+        cells, bound = _banded_bound(m, n, w, K)
+        _order, seg = gd.plan_band_bins(tm, td, tn, K)
+        bins = torch.diff(seg).tolist()
         _say(f"banded_dir K={K}: B={B} LQ={LQ} max_abs_err={err} "
-             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-             f"{bound[0]:.4g} ms by {bound[1]} ({cells} cells x "
-             f"{BANDED_OPS_PER_CELL} ops, {int(m64.sum()) * K} direction "
+             f"kernel {ms:.3f} ms ({gd.band_launches(K)} launches, jobs per "
+             f"k_real bin, widest first, {bins}), plain {plain_ms:.3f} ms, "
+             f"bound {bound[0]:.4g} ms by {bound[1]} ({cells} cells x "
+             f"{BANDED_OPS_PER_CELL} ops, {int(m.sum()) * K} direction "
              f"bytes)")
         if err:
             raise AssertionError(f"banded_dir K={K} disagrees")
+        if parent_ms and ms >= min(parent_ms):
+            raise AssertionError(f"banded_dir K={K}: {ms:.3f} ms is not "
+                                 f"below the parent's {min(parent_ms):.3f}")
         a = agg["banded_dir"]
         a[0] = max(a[0], err)
         a[1].append({"K": K, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound[0], "bound_by": bound[1]})
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "parent_ms": parent_ms, "jobs_per_bin": bins})
         got = gd.traceback_rle(dirs, tm, tn, td)
         want = gd.traceback_rle_plain(dirs, tm, tn, td)
         torch.cuda.synchronize()
@@ -571,9 +726,10 @@ def check_finalize(dev, rng, rows, B=4096):
                       "bound_ms": sum(r["bound_ms"] for r in rungs),
                       "bound_by": rungs[0]["bound_by"],
                       "library_ms": None, "library_why": NO_LIBRARY[name],
-                      "ms_of": (f"sum of one launch per rung "
-                                f"(K={'+'.join(str(r['K']) for r in rungs)})"
-                                f", B={B} LQ={LQ}"),
+                      "ms_of": (f"sum of one call per rung "
+                                f"(K={'+'.join(str(r['K']) for r in rungs)}"
+                                f"; K2: one launch per k_real bin and the "
+                                f"binning), B={B} LQ={LQ}"),
                       "rungs": rungs}
 
 
@@ -585,6 +741,18 @@ def _keep_first_call(module, name, kept):
     def wrapper(*args, **kwargs):
         kept.setdefault(name, (args, kwargs))
         return fn(*args, **kwargs)
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, fn)
+
+
+def _keep_calls(module, name, calls):
+    """Wrap module.<name> so that every call's positional arguments are
+    appended to calls; returns the undo."""
+    fn = getattr(module, name)
+
+    def wrapper(*args):
+        calls.append(args)
+        return fn(*args)
     setattr(module, name, wrapper)
     return lambda: setattr(module, name, fn)
 
@@ -646,10 +814,129 @@ def check_extend_path(kept, rows):
         "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]}
 
 
+def check_finalize_path(calls, launches, rows):
+    """K2 on the default run's own finalize jobs: every direction call the
+    run made (a chunk at rung 16, then its jobs that rung 16 did not
+    accept at rung 64), each against the plain version, with the jobs'
+    k_real histogram and the rung's time beside its bound."""
+    import torch
+
+    from seeksv_tpu_torch.ops import global_device as gd
+    want = sum(gd.band_launches(c[5]) for c in calls)
+    if launches["banded_dir"] != want:
+        raise AssertionError(f"the default run made {len(calls)} direction "
+                             f"calls, {want} launches by their k_real bins, "
+                             f"and counted {launches['banded_dir']}")
+    rungs = {}
+    for w, K in gd.TorchDeviceGlobalAligner.RUNGS:
+        mine = [c for c in calls if c[5] == K]
+        r = rungs[K] = {"calls": len(mine), "jobs": 0, "max_abs_err": 0,
+                        "ms": 0.0, "parent_ms": 0.0 if PARENT["lib"] else None,
+                        "bound_ms": 0.0, "cells": 0,
+                        "jobs_per_bin": [0] * gd.band_launches(K)}
+        k_all = []
+        for q, qlen, t, dlo, n, _K in mine:
+            B, LQ = q.shape
+            score, dirs = gd.banded_direction(q, qlen, t, dlo, n, K)
+            ws, wdirs = gd.banded_direction_plain(
+                q, qlen, gd.build_t2(t, n, dlo, K, LQ), dlo, n, K, LQ)
+            torch.cuda.synchronize()
+            rows_m = (torch.arange(1, LQ + 1, device=q.device)[None, :]
+                      <= qlen[:, None])
+            r["max_abs_err"] = max(r["max_abs_err"], _max_abs_err(
+                [(score, ws), (dirs[rows_m], wdirs[rows_m])]))
+            del wdirs, rows_m
+            r["ms"] += _cuda_ms(
+                lambda: gd.banded_direction(q, qlen, t, dlo, n, K), 3)
+            if PARENT["lib"]:
+                r["parent_ms"] += _cuda_ms(lambda: _parent_call(
+                    "seeksv_banded_dir", q.data_ptr(), t.data_ptr(),
+                    dlo.data_ptr(), qlen.data_ptr(), n.data_ptr(), B, LQ,
+                    t.shape[1], K, score.data_ptr(), dirs.data_ptr()), 3)
+            cells, bound = _banded_bound(qlen.cpu().numpy(), n.cpu().numpy(),
+                                         w, K)
+            r["jobs"] += B
+            r["cells"] += cells
+            r["bound_ms"] += bound[0]
+            r["bound_by"] = bound[1]
+            _order, seg = gd.plan_band_bins(qlen, dlo, n, K)
+            r["jobs_per_bin"] = [a + b for a, b in zip(
+                r["jobs_per_bin"], torch.diff(seg).tolist())]
+            k_all.append(gd.band_columns(qlen, dlo, n, K).cpu().numpy())
+        if k_all:
+            # the jobs by k_real: {columns: jobs}, the 12 commonest widths
+            widths, jobs = np.unique(np.concatenate(k_all),
+                                     return_counts=True)
+            top = np.sort(np.argsort(-jobs)[:12])
+            r["k_real"] = {str(int(widths[x])): int(jobs[x]) for x in top}
+            r["k_real_widths"] = len(widths)
+    share = rungs[256]["jobs"] / max(1, rungs[128]["jobs"])
+    for K, r in rungs.items():
+        _say(f"banded_dir on the default run's finalize jobs, K={K}: "
+             f"{r['calls']} calls, {r['jobs']} jobs, jobs by k_real "
+             f"{json.dumps(r.get('k_real'))} ({r.get('k_real_widths', 0)} "
+             f"widths in all), jobs per k_real bin (edges "
+             f"{list(reversed(gd.BAND_EDGES[K]))}) {r['jobs_per_bin']}, "
+             f"{r['cells']} cells: max_abs_err={r['max_abs_err']} kernel "
+             f"{r['ms']:.3f} ms over the calls"
+             + (f" (parent {r['parent_ms']:.3f})" if PARENT["lib"] else "")
+             + f", bound {r['bound_ms']:.4g} ms")
+        if r["max_abs_err"]:
+            raise AssertionError("banded_dir disagrees with its plain "
+                                 "version on the run's own jobs")
+    _say(f"banded_dir on the default run: {share:.4f} of the finalize jobs "
+         f"reach rung 64")
+    if not rungs[128]["jobs"]:
+        raise AssertionError("the default run finalized nothing on the card")
+    rows["banded_dir"]["on_the_runs_jobs"] = {
+        "share_reaching_rung_64": share,
+        "rungs": [{"K": K, **r} for K, r in rungs.items()]}
+
+
+def _consensus_cases(dev, G, LL, LR):
+    """Groups of 1, 2, 8, 9 and G reads (and none) of noisy copies of two
+    templates, then eight groups of random reads that overflow
+    max_slots = 8 (tests/torch_inputs.py:sized_groups), on the card."""
+    import torch
+    from torch_inputs import sized_groups
+    sizes = [0, 1, 2, 8, 9, G] * 4 + [G] * 8
+    return [torch.from_numpy(a).to(dev)
+            for a in sized_groups(5, sizes, G, LL, LR, S_random=8)]
+
+
+def check_consensus_paths(dev):
+    """K5 against its plain version, exactly, on groups of every size
+    class (none, 1, 2, 8, 9 and G reads, eight of them overflowing), and
+    on groups of 2,000 reads, whose lengths and slot state are past the
+    shared memory a warp has and stay in device memory."""
+    import torch
+
+    from seeksv_tpu_torch.ops import consensus_scan as cs
+    from torch_inputs import sized_groups
+    G, L, S = 45, 999, 8
+    arrays = _consensus_cases(dev, G, L, L)
+    big = [torch.from_numpy(a).to(dev)
+           for a in sized_groups(1, [2000, 3, 2000, 1], 2000, 40, 36)]
+    for name, inputs, n_over in (("sides up to 999 bytes", arrays, 8),
+                                 ("sides up to 40 bytes", big, None)):
+        got = cs.consensus_scan_groups(*inputs, 17, 20, max_slots=S)
+        want = cs.consensus_scan_plain(*inputs, 17, 20, max_slots=S)
+        torch.cuda.synchronize()
+        err = _max_abs_err([(got[k], want[k]) for k in want])
+        over = int(want["overflow"].sum())
+        _say(f"consensus_scan paths: {len(inputs[4])} groups of "
+             f"{sorted(set(inputs[4].tolist()))} reads, {name}, "
+             f"{over} overflow: max_abs_err={err}")
+        if err or n_over not in (None, over):
+            raise AssertionError("consensus_scan disagrees with its plain "
+                                 "version on one of its paths")
+
+
 def check_consensus_scan(kept, rows):
     """K5 against its plain version on the SPMD run's first consensus
     call, with 64 groups of random reads appended (at least 16 each, so
-    max_slots = 8 overflows)."""
+    max_slots = 8 overflows); timed as its launch alone and as the whole
+    call, each beside a bound counted from the bytes it needs."""
     import torch
 
     from seeksv_tpu_torch.ops import consensus_scan as cs
@@ -674,33 +961,96 @@ def check_consensus_scan(kept, rows):
     want = cs.consensus_scan_plain(*args, max_slots=8)
     torch.cuda.synchronize()
     err = _max_abs_err([(got[k], want[k]) for k in want])
-    ms = _cuda_ms(lambda: cs.consensus_scan_groups(*args, max_slots=8), 3)
+    n_over = int(want["overflow"].sum())
+    # the run's own groups by their number of reads
+    sizes = np.bincount(n_reads.cpu().numpy(), minlength=G + 1)
+    order = cs.plan_groups(args[1], args[3], args[4])
+    _say(f"consensus_scan: the run's {NG} groups by reads "
+         f"{json.dumps({str(i): int(c) for i, c in enumerate(sizes) if c})}"
+         f"; a group's live bytes are "
+         f"{int(cs.live_bytes(args[1], args[3], args[4]).max())} at the most")
+    # timed twice: the launch alone (the order made before, no gathers of
+    # the sides' rows), and the whole call
+    launch = lambda: cs.consensus_scan_groups(
+        *args, max_slots=8, with_sides=False, order=order)
+    whole = lambda: cs.consensus_scan_groups(*args, max_slots=8)
+    launch_ms = _cuda_ms(launch, 3)
+    planned_ms = _cuda_ms(lambda: cs.consensus_scan_groups(
+        *args, max_slots=8, with_sides=False), 3)
+    ms = _cuda_ms(whole, 3)
     plain_ms = _cuda_ms(lambda: cs.consensus_scan_plain(*args, max_slots=8),
                         1)
-    n_over = int(want["overflow"].sum())
-    # every input byte once and every output byte once; operations: each
-    # read's two sides compared (a compare and a count per base) against
-    # at most the slots its group ends with
+    parent_ms = None
+    if PARENT["lib"]:
+        # the parent's kernel (one launch, no gathers) on the same inputs,
+        # in turns with this one's launch
+        NG2 = args[4].numel()
+        po = {k: torch.empty_like(got[k]) for k in
+              ("support", "n_slots", "slot_of_read", "overflow", "src_l",
+               "src_r")}
+        run_parent = lambda: _parent_call(
+            "seeksv_consensus_scan", args[0].data_ptr(), args[1].data_ptr(),
+            LL, args[2].data_ptr(), args[3].data_ptr(), LR,
+            args[4].data_ptr(), NG2, G2, 8, num, den,
+            po["support"].data_ptr(), po["n_slots"].data_ptr(),
+            po["slot_of_read"].data_ptr(), po["overflow"].data_ptr(),
+            po["src_l"].data_ptr(), po["src_r"].data_ptr())
+        run_parent()
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err([(po[k], want[k]) for k in po]))
+        turns = [_cuda_ms(f, 3) for f in (run_parent, launch, launch,
+                                          run_parent)]
+        parent_ms = [turns[0], turns[3]]
+        _say(f"consensus_scan launch alone in turns: parent "
+             f"{turns[0]:.3f} ms, this {turns[1]:.3f}, this {turns[2]:.3f}, "
+             f"parent {turns[3]:.3f}")
+    # the launch's bound, from what the kernel needs: the live bytes of
+    # the live reads' sides, their two lengths, n_reads and the kernel's
+    # outputs, each once; operations: each read's two sides compared (a
+    # compare and a count per base) against at most the slots its group
+    # ends with.  The whole call's bound adds the gathered rows and lengths
+    # it writes.
     live = torch.arange(G2, device=dev)[None, :] < args[4][:, None]
     bases = ((args[1] + args[3]) * live).sum(dim=1).to(torch.int64)
-    bound = _bound(int((bases * got["n_slots"].clamp(max=8)).sum()) * 2,
-                   _nbytes(*args[:5]) + _nbytes(*got.values()))
+    kernel_keys = ("support", "n_slots", "slot_of_read", "overflow", "src_l",
+                   "src_r")
+    live_bytes = (int(bases.sum()) + int(live.sum()) * 8 + _nbytes(args[4])
+                  + _nbytes(*(got[k] for k in kernel_keys)))
+    gathered = _nbytes(*(v for k, v in got.items() if k not in kernel_keys))
+    ops = int((bases * got["n_slots"].clamp(max=8)).sum()) * 2
+    launch_bound = _bound(ops, live_bytes)
+    bound = _bound(ops, live_bytes + gathered)
+    padded = _bound(ops, _nbytes(*args[:5]) + _nbytes(*got.values()))
     shape = (f"the SPMD run's first call NG={NG} G={G} LL={LL} LR={LR} "
              f"(max_slots {kw.get('max_slots')}) + 64 random groups, "
              f"G {G2}, max_slots 8")
     _say(f"consensus_scan: {shape}: {n_over} groups overflow, "
-         f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-         f"bound {bound[0]:.4g} ms by {bound[1]}")
+         f"max_abs_err={err} launch alone {launch_ms:.3f} ms (bound "
+         f"{launch_bound[0]:.4g} ms by {launch_bound[1]}: {live_bytes} live "
+         f"bytes, {int(live.sum())} reads), with the ordering's torch ops "
+         f"{planned_ms:.3f}, the whole call (the gathers of the sides' rows "
+         f"too) {ms:.3f} (bound {bound[0]:.4g} ms by {bound[1]}: "
+         f"{gathered} gathered bytes more), plain {plain_ms:.3f} ms; "
+         f"counting the padded tensors and the gathered rows, as before: "
+         f"{padded[0]:.4g} ms by {padded[1]}")
     if err or n_over < 64:
         raise AssertionError("consensus_scan disagrees with its plain "
                              "version or the overflow groups did not")
+    if parent_ms and launch_ms >= min(parent_ms):
+        raise AssertionError(f"consensus_scan: {launch_ms:.3f} ms is not "
+                             f"below the parent's {min(parent_ms):.3f}")
     rows["consensus_scan"] = {
         "route": "cuda", "source": "seeksv_tpu_torch/csrc/consensus_scan.cu",
         "replaces": "seeksv_tpu/ops/consensus_scan.py:31",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
         "library_why": NO_LIBRARY["consensus_scan"],
-        "ms_of": f"one launch, {shape}"}
+        "ms_of": f"one call (one launch, the ordering and the gathers of "
+                 f"the sides' rows; the bound counts the gathered rows "
+                 f"too), {shape}",
+        "launch_ms": launch_ms, "launch_bound_ms": launch_bound[0],
+        "with_dispatch_ms": planned_ms, "padded_bound_ms": padded[0],
+        "parent_ms": parent_ms}
 
 
 def check_discordant_count(kept, rows):
@@ -760,33 +1110,40 @@ EXPECTED = {
 
 
 def _counters():
-    """(the launch counters of every kernel, the hit_cap counters)."""
+    """(the launch counters of every kernel, the counters of plain-version
+    calls, the hit_cap counters)."""
     from seeksv_tpu_torch.ops import consensus_scan as cs
     from seeksv_tpu_torch.ops import discordant as dc
     from seeksv_tpu_torch.ops import extend as ext
     from seeksv_tpu_torch.ops import global_device as gd
     from seeksv_tpu_torch.ops import seed_device as sd
-    return (ext.LAUNCHES, gd.LAUNCHES, sd.LAUNCHES, cs.LAUNCHES,
-            dc.LAUNCHES), sd.OVERFLOW
+    mods = (ext, gd, sd, cs, dc)
+    return (tuple(x.LAUNCHES for x in mods),
+            tuple(x.PLAIN_CALLS for x in mods), sd.OVERFLOW)
 
 
 def _drive(name, fn):
     """Run fn with every counter at 0 just before; return its result and
-    the launches it made; fail unless they are exactly EXPECTED[name]."""
-    launch_counts, overflow_count = _counters()
-    for c in (*launch_counts, overflow_count):
+    the launches it made; fail unless they are exactly EXPECTED[name], or
+    if any wrapper took its plain version during the run."""
+    launch_counts, plain_counts, overflow_count = _counters()
+    for c in (*launch_counts, *plain_counts, overflow_count):
         for key in c:
             c[key] = 0
     res = fn()
     launches = {k: v for c in launch_counts for k, v in c.items()}
+    plain = {k: v for c in plain_counts for k, v in c.items()}
     overflow = dict(overflow_count)
-    _say(f"slice {name}: launches {json.dumps(launches)} hit_cap "
-         f"{json.dumps(overflow)}")
+    _say(f"slice {name}: launches {json.dumps(launches)} plain-version "
+         f"calls {sum(plain.values())} hit_cap {json.dumps(overflow)}")
     want = EXPECTED[name]
     wrong = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
     if wrong:
         raise AssertionError(f"slice {name}: expected launches of exactly "
                              f"{want}, got {launches}")
+    if any(plain.values()):
+        raise AssertionError(f"slice {name}: a wrapper took its plain "
+                             f"version on the card: {plain}")
     if overflow["to_host"]:
         raise AssertionError(f"slice {name}: {overflow['to_host']} chunk(s) "
                              "overflowed to host seeding")
@@ -850,14 +1207,19 @@ def run_slice(dev, workdir, card, rows):
         runs[name], launches[name] = _drive(name, fn)
 
     from seeksv_tpu_torch.ops import extend as ext
-    kept = {}
-    undo = _keep_first_call(ext, "extend_batch_resident", kept)
+    from seeksv_tpu_torch.ops import global_device as gd
+    kept, dir_calls = {}, []
+    undo = [_keep_first_call(ext, "extend_batch_resident", kept),
+            _keep_calls(gd, "banded_direction", dir_calls)]
     try:
         drive("device", lambda: run_pipeline(
             ref, bam, os.path.join(out, "device"), device=dev, index=index))
     finally:
-        undo()
+        for u in undo:
+            u()
     check_extend_path(kept["extend_batch_resident"], rows)
+    check_finalize_path(dir_calls, launches["device"], rows)
+    del dir_calls
     n_jobs = runs["device"]["aligner"].last_dispatch["n_jobs"]
     _say(f"slice: the default run dispatched {n_jobs} extension jobs per "
          f"direction (phase 2's K1 shape is the TPU record's 18,143)")
@@ -914,11 +1276,16 @@ def main() -> int:
                                                       "chip_smoke"),
                     help="scratch for the dataset and outputs (removed "
                          "after a passing run)")
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="another checkout of the repo: its banded_dir.cu "
+                         "and consensus_scan.cu are built apart and timed "
+                         "in turns with this one's on the same inputs, and "
+                         "this one's must be the faster")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
-    sys.path.insert(0, HERE)
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
     import seeksv_tpu_torch  # noqa: F401  (absent: not run from the repo)
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -927,6 +1294,8 @@ def main() -> int:
         check=True).stdout.strip()
     t_all = time.perf_counter()
     provenance(card)
+    if args.parent:
+        build_parent(os.path.abspath(args.parent))
     rng = np.random.default_rng(1)
     rows = {}
     genome, refp = check_extend(dev, rng, rows)
@@ -934,6 +1303,8 @@ def main() -> int:
     check_extend_mixed(dev, rng, genome, refp)
     del genome, refp
     check_finalize(dev, rng, rows)
+    check_finalize_edges(dev, rng)
+    check_consensus_paths(dev)
     by_run = run_slice(dev, args.workdir, card, rows)
     kernels = []
     for name, row in rows.items():

@@ -61,14 +61,15 @@ _SIGNATURES = {
     # shift, max_occ, lo, cnt, stream
     "seeksv_seed_lookup": [_P, _P, _I, _I, _I, _P, _LL, _I, _P, _LL, _I, _I,
                            _P, _P, _P],
-    # q, t, dlo, m, n, B, LQ, LT, K, score, dirs, stream
-    "seeksv_banded_dir": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # q, t, dlo, m, n, B, LQ, LT, K, order, seg, score, dirs, stream
+    "seeksv_banded_dir": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                          _P],
     # dirs, m, n, dlo, B, LQ, K, runs_len, runs_op, n_runs, stream
     "seeksv_traceback": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # seq_l, len_l, LL, seq_r, len_r, LR, n_reads, NG, G, S, num, den,
-    # support, n_slots, slot_of, overflow, src_l, src_r, stream
+    # order, support, n_slots, slot_of, overflow, src_l, src_r, stream
     "seeksv_consensus_scan": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _LL,
-                              _LL, _P, _P, _P, _P, _P, _P, _P],
+                              _LL, _P, _P, _P, _P, _P, _P, _P, _P],
     # pos, end, lq, mpos, mtid, fwd, mfwd, base_ok, R, lo, hi, beg, up_pos,
     # down_pos, down_tid, same_tid, case_code, min_ins, max_ins, J,
     # window_cap, out, stream
@@ -155,6 +156,10 @@ def lib() -> ctypes.CDLL:
             handle.seeksv_extend_bins.restype = ctypes.c_int
             handle.seeksv_extend_bin_edge.argtypes = [_I]
             handle.seeksv_extend_bin_edge.restype = ctypes.c_int
+            handle.seeksv_banded_bins.argtypes = [_I]
+            handle.seeksv_banded_bins.restype = ctypes.c_int
+            handle.seeksv_banded_bin_edge.argtypes = [_I, _I]
+            handle.seeksv_banded_bin_edge.restype = ctypes.c_int
             handle.seeksv_cuda_error_string.argtypes = [_I]
             handle.seeksv_cuda_error_string.restype = ctypes.c_char_p
             _lib = handle

@@ -11,9 +11,23 @@ once ``max_slots`` are open.
 - ``consensus_scan_plain``: the reference's scan in torch ops, a loop
   over the G reads on [NG, S, L] slot tensors, any device.
 - ``consensus_scan_groups``: the wrapper.  On a CUDA tensor it launches
-  csrc/consensus_scan.cu (one block per group; the slot state is the
-  source read of each side, not its bytes) and counts the launch; on a
-  CPU tensor it runs the plain version.
+  csrc/consensus_scan.cu and counts the launch; on a CPU tensor it runs
+  the plain version.
+- ``plan_groups``: the order in which the kernel's warps take the groups,
+  in torch ops on the groups' device.
+
+What bounds the kernel on the card is the live bytes of the sides (not
+the padding of the [NG, G, L] tensors) and the dependent chain of a
+group's reads.  What the design does about it: the slot state is the
+source read of each side, not its bytes, and lives in shared memory with
+the group's lengths; a warp runs a group, four groups a block, in one
+persistent launch (thousands of groups give the card its parallelism, and
+a group's live slots are few) that walks the groups by falling live bytes
+(``plan_groups``), so the largest start at once; the sides are compared
+in the input rows where they lie, four bytes a lane a step, with many
+warps a multiprocessor to hide the distance; a group of one read takes no
+compare; a group too long for its lengths and state to fit the warp's
+shared memory keeps them in device memory, in the same loop.
 
 Unlike the reference, neither takes the qualities: the reference carries
 them beside the sequences but returns none of them, and a side's
@@ -31,11 +45,32 @@ import torch
 
 from .extend import _check
 
-# K5 launches; plain-version calls made for CPU tensors are counted apart
+# K5's kernel launches (one a call); plain-version calls made for CPU
+# tensors apart
 LAUNCHES = {"consensus_scan": 0}
 PLAIN_CALLS = {"consensus_scan": 0}
 
 BIG = 0x7FFFFFFF
+
+
+def live_bytes(len_l, len_r, n_reads) -> torch.Tensor:
+    """[NG] int64: the bytes of a group's live sides (len_l + len_r of its
+    first n_reads reads); 0 for a group of at most one read, which takes
+    no compare."""
+    G = len_l.shape[1]
+    n = n_reads.to(torch.int64).clamp(0, G)
+    live = torch.arange(G, device=len_l.device)[None, :] < n[:, None]
+    total = ((len_l.to(torch.int64) + len_r.to(torch.int64)) * live).sum(dim=1)
+    return torch.where(n > 1, total, torch.zeros_like(n))
+
+
+def plan_groups(len_l, len_r, n_reads) -> torch.Tensor:
+    """The order in which the kernel's warps take the NG groups: [NG]
+    int32, by falling live_bytes (the largest group starts first; equal
+    groups in index order).  Torch ops on the device of n_reads; no
+    synchronisation with the host."""
+    need = live_bytes(len_l, len_r, n_reads)
+    return torch.argsort(need, descending=True, stable=True).to(torch.int32)
 
 
 def _side_rows(seq, lens, src):
@@ -46,8 +81,8 @@ def _side_rows(seq, lens, src):
     idx = src.clamp(min=0).to(torch.int64)
     rows = torch.gather(seq, 1, idx[:, :, None].expand(NG, S, seq.shape[2]))
     ln = torch.gather(lens, 1, idx)
-    return (torch.where(has[:, :, None], rows, torch.zeros_like(rows)),
-            torch.where(has, ln, torch.zeros_like(ln)))
+    return (rows.masked_fill_(~has[:, :, None], 0),
+            ln.masked_fill_(~has, 0))
 
 
 def _with_sides(out, seq_l, len_l, seq_r, len_r):
@@ -125,12 +160,16 @@ def consensus_scan_plain(seq_l, len_l, seq_r, len_r, n_reads,
 
 def consensus_scan_groups(seq_l, len_l, seq_r, len_r, n_reads,
                           threshold_num: int, threshold_den: int,
-                          max_slots: int = 16) -> dict:
+                          max_slots: int = 16, with_sides: bool = True,
+                          order=None) -> dict:
     """The consensus merge of NG groups (arguments as
     consensus_scan_plain, lengths and n_reads int32).
 
     A CUDA tensor launches csrc/consensus_scan.cu (no fallback); a CPU
-    tensor runs consensus_scan_plain."""
+    tensor runs consensus_scan_plain.  with_sides=False leaves out the
+    sides' rows and lengths (sl_seq, sl_len, sr_seq, sr_len), which are
+    gathers after the kernel; order: plan_groups of these inputs, made
+    before (a timing's way to leave the planning out)."""
     dev = seq_l.device
     if seq_l.dim() != 3 or seq_r.dim() != 3:
         raise ValueError("seq_l and seq_r must be [NG, G, L] byte tensors")
@@ -159,14 +198,18 @@ def consensus_scan_groups(seq_l, len_l, seq_r, len_r, n_reads,
     out["slot_of_read"] = torch.empty((NG, G), dtype=torch.int32, device=dev)
     out["overflow"] = torch.empty(NG, dtype=torch.bool, device=dev)
     if NG:
+        if order is None:
+            order = plan_groups(len_l, len_r, n_reads)
         rc = lib.seeksv_consensus_scan(
             seq_l.data_ptr(), len_l.data_ptr(), LL, seq_r.data_ptr(),
             len_r.data_ptr(), LR, n_reads.data_ptr(), NG, G, S,
-            int(threshold_num), int(threshold_den),
+            int(threshold_num), int(threshold_den), order.data_ptr(),
             out["support"].data_ptr(), out["n_slots"].data_ptr(),
             out["slot_of_read"].data_ptr(), out["overflow"].data_ptr(),
             out["src_l"].data_ptr(), out["src_r"].data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, "seeksv_consensus_scan")
         LAUNCHES["consensus_scan"] += 1
+    if not with_sides:
+        return out
     return _with_sides(out, seq_l, len_l, seq_r, len_r)

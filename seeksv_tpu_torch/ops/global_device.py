@@ -25,6 +25,18 @@ Each kernel has its plain PyTorch version here; the wrappers
 (csrc/banded_dir.cu, csrc/traceback.cu) on CUDA tensors and the plain
 versions on CPU tensors.  Unlike the reference's scan, the walk has no
 step budget, so a walk always completes.
+
+What bounds the direction pass on the card is its integer operations,
+about twenty a cell of the band, on a chain of m dependent rows.  What
+the design does about it: one warp runs one job with the band columns a
+lane holds sized to the job's own band (k_real = |n - m| + 2w + 1
+columns, not K), so ``plan_band_bins`` bins the jobs by k_real
+(``BAND_EDGES``) in torch ops on the jobs' device, widest bin first and a
+bin's jobs longest m first; a call is one launch per bin
+(``band_launches``), each job's results written at its own index.  And
+rung 64 runs only on the jobs rung 16 did not accept, as a compacted
+sub-batch on the device: the reference runs it on every job of a chunk
+for the sake of static shapes, which the port does not need.
 """
 from __future__ import annotations
 
@@ -47,6 +59,15 @@ _DF = 4      # h == F[i,j]
 _ERUN = 8    # E[i,j] == E[i,j-1] - ext  (and j-1 >= 1, in band)
 _FRUN = 16   # F[i,j] == F[i-1,j] - ext  (and i > 1, in band)
 
+# k_real bins of the direction kernel by band width K: a job whose band
+# has at most BAND_EDGES[K][i] columns (and more than the edge before) runs
+# in bin i, one warp with BAND_EDGES[K][i] / 32 columns a lane.  A band of
+# w = 64 has at least 129 columns.  csrc/banded_dir.cu holds the same edges
+# and every launch checks that the two agree.
+BAND_EDGES = {128: (64, 128), 256: (160, 192, 256)}
+
+# kernel launches (a direction call adds one per k_real bin of its K:
+# band_launches(K)); plain-version calls made for CPU tensors apart
 LAUNCHES = {"banded_dir": 0, "traceback": 0}
 PLAIN_CALLS = {"banded_dir": 0, "traceback": 0}
 
@@ -222,6 +243,50 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def band_launches(K: int) -> int:
+    """Kernel launches of one direction call at band width K: one per
+    k_real bin."""
+    return len(BAND_EDGES[K])
+
+
+def band_columns(qlen: torch.Tensor, dlo: torch.Tensor, n: torch.Tensor,
+                 K: int) -> torch.Tensor:
+    """[B] int32: the columns of each job's band that the pass computes,
+    k_real = |n - m| + 2w + 1 with w = min(0, n - m) - dlo, cut to
+    [0, K]."""
+    d = n - qlen
+    w = d.clamp(max=0) - dlo
+    return torch.add(d.abs() + 1, w, alpha=2).clamp(0, K)
+
+
+def plan_band_bins(qlen: torch.Tensor, dlo: torch.Tensor, n: torch.Tensor,
+                   K: int):
+    """The direction kernel's dispatch of B jobs at band width K: (order,
+    seg).
+
+    order [B] int32: the jobs, bins widest first (BAND_EDGES[K] from the
+    last to the first), inside a bin by falling qlen (the longest job
+    starts first; lengths past 2^20 count as 2^20).  seg
+    [len(BAND_EDGES[K]) + 1] int32: the bins' offsets into order, in that
+    order.  A few torch ops on the device of qlen, none of which waits for
+    the device (the edges are Python ints, the counts a comparison and a
+    sum)."""
+    edges = BAND_EDGES[K]
+    n_bins = len(edges)
+    k_real = band_columns(qlen, dlo, n, K)
+    # edges[i-1] < k_real <= edges[i]
+    bin_id = (k_real > edges[0]).to(torch.int32)
+    for e in edges[1:-1]:
+        bin_id += k_real > e
+    key = (bin_id << 20) + qlen.clamp(0, (1 << 20) - 1)
+    order = torch.argsort(key, descending=True).to(torch.int32)
+    # seg[x] = the jobs in the x widest bins = those with bin_id >= n_bins - x
+    floor = torch.arange(n_bins, -1, -1, dtype=torch.int32,
+                         device=qlen.device)
+    seg = (bin_id[None, :] >= floor[:, None]).sum(dim=1, dtype=torch.int32)
+    return order, seg
+
+
 def banded_direction(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
                      dlo: torch.Tensor, n: torch.Tensor, K: int):
     """Banded DP pass: q [B, LQ] / t [B, LT] uint8 codes, qlen, dlo, n
@@ -229,7 +294,8 @@ def banded_direction(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
     dirs [B, LQ, K] uint8).  Direction rows past a job's qlen are
     unspecified on the card (the kernel stops at row qlen).
 
-    CUDA tensors launch csrc/banded_dir.cu; CPU tensors run build_t2 +
+    CUDA tensors launch csrc/banded_dir.cu, one launch per k_real bin
+    (plan_band_bins; no fallback); CPU tensors run build_t2 +
     banded_direction_plain."""
     dev = q.device
     B, LQ = q.shape
@@ -252,12 +318,19 @@ def banded_direction(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
     dirs = torch.empty((B, LQ, K), dtype=torch.uint8, device=dev)
     if B == 0:
         return score, dirs
+    edges = tuple(lib.seeksv_banded_bin_edge(K, i)
+                  for i in range(lib.seeksv_banded_bins(K)))
+    if edges != BAND_EDGES[K]:
+        raise RuntimeError(f"csrc/banded_dir.cu bins K={K} at {edges}, "
+                           f"BAND_EDGES says {BAND_EDGES[K]}")
+    order, seg = plan_band_bins(qlen, dlo, n, K)
     rc = lib.seeksv_banded_dir(q.data_ptr(), t.data_ptr(), dlo.data_ptr(),
                                qlen.data_ptr(), n.data_ptr(), B, LQ, LT, K,
+                               order.data_ptr(), seg.data_ptr(),
                                score.data_ptr(), dirs.data_ptr(),
                                _stream(dev))
     _build.check(rc, "seeksv_banded_dir")
-    LAUNCHES["banded_dir"] += 1
+    LAUNCHES["banded_dir"] += band_launches(K)
     return score, dirs
 
 
@@ -371,43 +444,58 @@ class TorchDeviceGlobalAligner:
         ad = np.abs(ns - ms)
         B = len(idxs)
 
-        def run_dir(w, K):
-            dl = put((np.minimum(0, ns - ms) - w).astype(np.int32))
-            score, dirs = banded_direction(qd, md, td, dl, nd, K)
+        def run_dir(w, K, rows=None):
+            """The direction pass at rung (w, K) on the chunk's jobs
+            `rows` (all of them when None), compacted on the device."""
+            dl = np.minimum(0, ns - ms) - w
+            if rows is None:
+                sub = (qd, md, td, nd)
+            else:
+                dl = dl[rows]
+                sel = put(rows.astype(np.int64))
+                sub = tuple(x.index_select(0, sel) for x in (qd, md, td, nd))
+            dl = put(dl.astype(np.int32))
+            score, dirs = banded_direction(sub[0], sub[1], sub[2], dl,
+                                           sub[3], K)
             return score.cpu().numpy(), dirs, dl
 
         accepted = []      # (out index, row, score, cigar) pending NM
 
-        def run_tb(dirs, dl, accept, score_arr):
-            mm = put(np.where(accept, ms, 0).astype(np.int32))
-            nn = put(np.where(accept, ns, 0).astype(np.int32))
+        def run_tb(dirs, dl, rows, accept, score_arr):
+            """Walk the accepted jobs of a pass over the chunk's jobs
+            `rows`; accept and score_arr are in the pass's order."""
+            mm = put(np.where(accept, ms[rows], 0).astype(np.int32))
+            nn = put(np.where(accept, ns[rows], 0).astype(np.int32))
             rl, ro, nr = (x.cpu().numpy()
                           for x in traceback_rle(dirs, mm, nn, dl))
-            for rr in np.nonzero(accept)[0]:
-                k = int(nr[rr])
+            for x in np.nonzero(accept)[0]:
+                k = int(nr[x])
                 if k == 0 or k > RUNS_CAP:
                     continue              # overflow -> host
-                cigar = [(int(rl[rr, x]), _OPCHR[int(ro[rr, x])])
-                         for x in range(k)]
-                accepted.append((idxs[rr], rr, int(score_arr[rr]), cigar))
+                rr = int(rows[x])
+                cigar = [(int(rl[x, y]), _OPCHR[int(ro[x, y])])
+                         for y in range(k)]
+                accepted.append((idxs[rr], rr, int(score_arr[x]), cigar))
 
         # the host ladder's check order: sound16, sound64, then the
-        # equal-adjacent rule -> rung 16's walk
+        # equal-adjacent rule -> rung 16's walk.  Rung 64 runs only on the
+        # jobs rung 16 did not accept, as a compacted sub-batch.
         (w16, K16), (w64, K64) = self.RUNGS
+        every = np.arange(B)
         sc16, dirs16, dl16 = run_dir(w16, K16)
         sound16 = sc16 >= self._sound_ceiling(mn, ad, w16)
-        need64 = ~sound16
-        sound64 = np.zeros(B, bool)
+        rows64 = np.nonzero(~sound16)[0]
         equal = np.zeros(B, bool)
-        if need64.any():
-            sc64, dirs64, dl64 = run_dir(w64, K64)
-            sound64 = need64 & (sc64 >= self._sound_ceiling(mn, ad, w64))
-            equal = need64 & ~sound64 & (sc16 == sc64)
+        if len(rows64):
+            sc64, dirs64, dl64 = run_dir(w64, K64, rows64)
+            sound64 = sc64 >= self._sound_ceiling(mn[rows64], ad[rows64],
+                                                  w64)
+            equal[rows64] = ~sound64 & (sc16[rows64] == sc64)
         acc16 = sound16 | equal
         if acc16.any():
-            run_tb(dirs16, dl16, acc16, sc16)
-        if sound64.any():
-            run_tb(dirs64, dl64, sound64, sc64)
+            run_tb(dirs16, dl16, every, acc16, sc16)
+        if len(rows64) and sound64.any():
+            run_tb(dirs64, dl64, rows64, sound64, sc64)
         if not accepted:
             return
         from ..io import native

@@ -16,10 +16,8 @@ from __future__ import annotations
 import gzip
 import os
 import tempfile
-from typing import Optional
 
 import numpy as np
-import torch
 
 from .mesh import make_mesh, mesh_device
 from .spmd_pipeline import is_writer, spmd_run_pipeline
@@ -41,15 +39,13 @@ def simulated_dataset(root: str) -> dict:
     return paths
 
 
-def dryrun_multichip(n_devices: int, device: Optional[str] = None) -> None:
-    """spmd_run_pipeline on an n-rank mesh (``cuda`` when torch sees a
-    card, else ``cpu``), then, on rank 0, the port's ``run_pipeline``
-    with force_host: the ``.sv`` and the decompressed ``.clip.gz`` must
-    be equal, and the ``.sv`` must hold a call.  Raises AssertionError on
-    a difference."""
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
+    """spmd_run_pipeline on an n-rank mesh on ``device`` (the card unless
+    the caller asks for ``"cpu"``; without a card ``"cuda"`` raises), then,
+    on rank 0, the port's ``run_pipeline`` with force_host: the ``.sv``
+    and the decompressed ``.clip.gz`` must be equal, and the ``.sv`` must
+    hold a call.  Raises AssertionError on a difference."""
     from ..pipeline.driver import run_pipeline
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     mesh = make_mesh(device, n_devices)
     with tempfile.TemporaryDirectory() as d:
         p = simulated_dataset(d)

@@ -99,3 +99,38 @@ def test_plain_matches_jax_on_real_clip_groups(clip_groups, S):
                                   max_slots=S)
     _assert_equal(got, want)
     assert (want["support"] > 1).any()
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5])
+def test_plan_groups_matches_numpy(seed):
+    """The order in which the kernel takes the groups against a numpy
+    restatement: every group exactly once, by falling live bytes, equal
+    groups in index order; a group of at most one read counts no bytes
+    and comes after every group that compares."""
+    seq_l, len_l, seq_r, len_r, n_reads = random_groups(seed, NG=60)
+    NG = len(n_reads)
+    tensors = tuple(map(torch.from_numpy, (len_l, len_r, n_reads)))
+    order = cs.plan_groups(*tensors)
+    assert order.dtype == torch.int32
+    order = order.numpy()
+    need = np.zeros(NG, np.int64)
+    for k in range(NG):
+        n = int(n_reads[k])
+        if n > 1:
+            need[k] = int(len_l[k, :n].sum()) + int(len_r[k, :n].sum())
+    np.testing.assert_array_equal(cs.live_bytes(*tensors).numpy(), need)
+    want = sorted(range(NG), key=lambda k: (-need[k], k))
+    assert order.tolist() == want
+    multi = int((n_reads > 1).sum())
+    assert 0 < multi < NG
+    assert (n_reads[order[:multi]] > 1).all()
+
+
+def test_live_bytes_ignores_rows_past_n_reads():
+    """Lengths left in the rows past a group's n_reads (padding of an
+    earlier, larger group) count nothing."""
+    len_l = torch.tensor([[5, 7, 9, 11], [5, 7, 9, 11]], dtype=torch.int32)
+    len_r = torch.tensor([[1, 2, 3, 4], [1, 2, 3, 4]], dtype=torch.int32)
+    n_reads = torch.tensor([2, 9], dtype=torch.int32)
+    assert cs.live_bytes(len_l, len_r, n_reads).tolist() == [15, 42]
+    assert cs.plan_groups(len_l, len_r, n_reads).tolist() == [1, 0]

@@ -151,10 +151,14 @@ def test_banded_direction_and_walk_match_plain(cuda, w, K):
     q, t, ms, ns, dlo = _pairs(rng, B, LQ, w, K)
     tq, tm, tt, td, tn = (torch.from_numpy(a).to(cuda)
                           for a in (q, ms, t, dlo, ns))
+    n0 = tgd.LAUNCHES["banded_dir"]
     score, dirs = tgd.banded_direction(tq, tm, tt, td, tn, K)
     ws, wdirs = tgd.banded_direction_plain(
         tq, tm, tgd.build_t2(tt, tn, td, K, LQ), td, tn, K, LQ)
     torch.cuda.synchronize()
+    # one kernel launch per k_real bin of the band width
+    assert tgd.band_launches(K) == {128: 2, 256: 3}[K]
+    assert tgd.LAUNCHES["banded_dir"] == n0 + tgd.band_launches(K)
     assert torch.equal(score, ws)
     rows = torch.arange(1, LQ + 1, device=cuda)[None, :] <= tm[:, None]
     assert torch.equal(dirs[rows], wdirs[rows])
@@ -164,6 +168,52 @@ def test_banded_direction_and_walk_match_plain(cuda, w, K):
     for g, x in zip(got, want):
         assert torch.equal(g, x)
     assert (got[2] <= tgd.RUNS_CAP).any()
+
+
+def _assert_direction_matches_plain(cuda, q, t, ms, ns, w, K):
+    LQ = q.shape[1]
+    dlo = (np.minimum(0, ns - ms) - w).astype(np.int32)
+    tq, tm, tt, td, tn = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                          for a in (q, ms, t, dlo, ns))
+    score, dirs = tgd.banded_direction(tq, tm, tt, td, tn, K)
+    ws, wdirs = tgd.banded_direction_plain(
+        tq, tm, tgd.build_t2(tt, tn, td, K, LQ), td, tn, K, LQ)
+    torch.cuda.synchronize()
+    assert torch.equal(score, ws)
+    rows = torch.arange(1, LQ + 1, device=cuda)[None, :] <= tm[:, None]
+    assert torch.equal(dirs[rows], wdirs[rows])
+    return tm, td, tn
+
+
+@pytest.mark.parametrize("LQ", [512, 1024, 2048])
+@pytest.mark.parametrize("w,K", [(16, 128), (64, 256)])
+def test_banded_direction_bin_edges_match_plain(cuda, w, K, LQ):
+    """K2 at every edge of its k_real bins and one past it (33, 64, 65,
+    128 columns at rung 16; 129, 160, 161, 192, 193, 256 at rung 64), with
+    n - m of either sign, at m = 257 and m = LQ, every whole row 1..m of
+    the direction block: exact."""
+    from torch_inputs import band_edge_lengths, finalize_pairs
+    rng = np.random.default_rng(K + LQ)
+    LT = LQ + 128
+    ms, ns = band_edge_lengths(w, K, LQ, LT)
+    q, t = finalize_pairs(rng, ms, ns, LQ, LT)
+    tm, td, tn = _assert_direction_matches_plain(cuda, q, t, ms, ns, w, K)
+    _order, seg = tgd.plan_band_bins(tm, td, tn, K)
+    assert (torch.diff(seg) > 0).all()          # every bin holds jobs
+    assert int(tm.max()) == LQ and int(tm.min()) == 257
+
+
+@pytest.mark.parametrize("w,K", [(16, 128), (64, 256)])
+def test_banded_direction_of_one_job_matches_plain(cuda, w, K):
+    """A sub-batch of one job (what rung 64 gets when one job of a chunk
+    needs it), in the narrowest and in the widest bin."""
+    from torch_inputs import finalize_pairs
+    rng = np.random.default_rng(w)
+    LQ = 1024
+    for m, n in ((700, 700), (600, 600 + K - 2 * w - 1)):
+        ms, ns = np.asarray([m], np.int32), np.asarray([n], np.int32)
+        q, t = finalize_pairs(rng, ms, ns, LQ, LQ)
+        _assert_direction_matches_plain(cuda, q, t, ms, ns, w, K)
 
 
 def test_walk_matches_plain_on_random_dirs(cuda):
@@ -311,6 +361,53 @@ def test_consensus_scan_matches_plain(cuda, S):
         assert torch.equal(got[k], want[k]), k
     assert bool(want["overflow"].any()) == (S < 64)
     assert int(want["support"].max()) > 1
+
+
+@pytest.mark.parametrize("S", [4, 40])
+def test_consensus_scan_group_sizes_match_plain(cuda, S):
+    """K5 on groups of 0, 1, 2, 8, 9 and G reads with sides of up to 999
+    bytes, the last eight of random reads (they overflow S = 4)."""
+    from seeksv_tpu_torch.ops import consensus_scan as cs
+    from torch_inputs import CONSENSUS_KEYS as KEYS
+    from torch_inputs import sized_groups
+    G = 40
+    sizes = [0, 1, 2, 8, 9, G] * 6 + [G // 2] * 8
+    arrays = [torch.from_numpy(a).to(cuda)
+              for a in sized_groups(S, sizes, G, 999, 999, S_random=8)]
+    got = cs.consensus_scan_groups(*arrays, 17, 20, max_slots=S)
+    want = cs.consensus_scan_plain(*arrays, 17, 20, max_slots=S)
+    torch.cuda.synchronize()
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k
+    assert int(want["overflow"].sum()) == (8 if S == 4 else 0)
+    assert int(want["support"].max()) > 4
+    # the kernel's outputs alone, in an order made before
+    order = cs.plan_groups(arrays[1], arrays[3], arrays[4])
+    bare = cs.consensus_scan_groups(*arrays, 17, 20, max_slots=S,
+                                    with_sides=False, order=order)
+    assert "sl_seq" not in bare
+    for k in bare:
+        assert torch.equal(bare[k], want[k]), k
+
+
+def test_consensus_scan_group_past_the_shared_memory_matches_plain(cuda):
+    """Groups of 2,000 reads: their lengths and slot state take more than
+    the 12 KB of shared memory a warp has, so the kernel keeps them in
+    device memory; the groups of 3 and 1 reads beside them keep theirs on
+    chip."""
+    from seeksv_tpu_torch.ops import consensus_scan as cs
+    from torch_inputs import CONSENSUS_KEYS as KEYS
+    from torch_inputs import sized_groups
+    G, S = 2000, 8
+    assert (2 * G + 3 * S) * 4 > 12 * 1024
+    arrays = [torch.from_numpy(a).to(cuda)
+              for a in sized_groups(1, [G, 3, G, 1], G, 40, 36)]
+    got = cs.consensus_scan_groups(*arrays, 17, 20, max_slots=S)
+    want = cs.consensus_scan_plain(*arrays, 17, 20, max_slots=S)
+    torch.cuda.synchronize()
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k
+    assert int(want["support"].max()) > 100
 
 
 @pytest.mark.parametrize("window_cap", [64, 512])

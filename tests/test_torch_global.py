@@ -260,3 +260,98 @@ def test_unpack_reference_dirs_layout():
     got = tgd.unpack_reference_dirs(words.view(np.int32), B, LQ, K)
     np.testing.assert_array_equal(got, want)
 
+
+
+@pytest.mark.parametrize("w,K", tgd.TorchDeviceGlobalAligner.RUNGS)
+def test_plan_band_bins_matches_numpy(w, K):
+    """The direction kernel's dispatch against a numpy restatement: every
+    job in exactly one bin, the bin the first whose edge holds the job's
+    k_real (the edges and one past each among the jobs), bins widest
+    first, a bin's jobs longest first."""
+    from torch_inputs import band_edge_lengths
+    rng = np.random.default_rng(K)
+    LQ, LT = 1024, 1024 + 128
+    ms, ns = band_edge_lengths(w, K, LQ, LT)
+    extra = rng.integers(257, LQ + 1, 40).astype(np.int32)
+    ms = np.concatenate([ms, extra])
+    ns = np.concatenate([ns, np.clip(extra + rng.integers(-90, 91, 40), 257,
+                                     LT).astype(np.int32)])
+    perm = rng.permutation(len(ms))
+    ms, ns = ms[perm], ns[perm]
+    dlo = (np.minimum(0, ns - ms) - w).astype(np.int32)
+    order, seg = tgd.plan_band_bins(*(torch.from_numpy(a)
+                                      for a in (ms, dlo, ns)), K)
+    order, seg = order.numpy(), seg.numpy()
+    edges = tgd.BAND_EDGES[K]
+    assert edges[-1] == K and all(e % 32 == 0 for e in edges)
+    assert tgd.band_launches(K) == len(edges) == len(seg) - 1
+    assert sorted(order.tolist()) == list(range(len(ms)))
+    assert seg[0] == 0 and seg[-1] == len(ms) and (np.diff(seg) > 0).all()
+    k_real = np.abs(ns - ms) + 2 * w + 1
+    np.testing.assert_array_equal(
+        tgd.band_columns(*(torch.from_numpy(a) for a in (ms, dlo, ns)),
+                         K).numpy(), np.minimum(k_real, K))
+    want_bin = np.searchsorted(edges, np.minimum(k_real, K))   # left
+    for e in edges[:-1]:
+        assert (k_real == e).any() and (k_real == e + 1).any()
+    for which in range(len(edges)):
+        jobs = order[seg[which]:seg[which + 1]]
+        b = len(edges) - 1 - which                  # widest bin first
+        assert (want_bin[jobs] == b).all()
+        assert (np.diff(ms[jobs]) <= 0).all()
+
+
+def test_binned_direction_lands_at_the_jobs_own_indices():
+    """The dispatch with the plain version in the kernel's place gives
+    the wrapper's result job for job."""
+    from torch_inputs import banded_direction_binned_plain, finalize_pairs
+    rng = np.random.default_rng(11)
+    w, K, LQ = 16, 128, 64
+    ms = rng.integers(20, LQ + 1, 12).astype(np.int32)
+    ns = np.clip(ms + rng.integers(-40, 41, 12), 1, LQ).astype(np.int32)
+    ms[:2], ns[:2] = (20, 60), (60, 20)        # bands of 73 columns
+    q, t = finalize_pairs(rng, ms, ns, LQ, LQ)
+    dlo = (np.minimum(0, ns - ms) - w).astype(np.int32)
+    tq, tm, tt, td, tn = (torch.from_numpy(a) for a in (q, ms, t, dlo, ns))
+    score, dirs = tgd.banded_direction(tq, tm, tt, td, tn, K)
+    bs, bd = banded_direction_binned_plain(tq, tm, tt, td, tn, K)
+    assert torch.equal(score, bs) and torch.equal(dirs, bd)
+    _order, seg = tgd.plan_band_bins(tm, td, tn, K)
+    assert (torch.diff(seg) > 0).all()
+
+
+def _rung_cases(which):
+    """Finalize jobs where no, some or all jobs need rung 64: an exact
+    copy is sound at rung 16; 40 bases deleted at one place and 40 others
+    inserted further on take the path 40 diagonals off, outside rung 16's
+    band and inside rung 64's."""
+    rng = np.random.default_rng(len(which))
+    qs, ts = [], []
+    for i in range(4):
+        q = rng.integers(0, 4, 300 + 10 * i).astype(np.uint8)
+        wide = {"none": False, "some": i % 2 == 1, "all": True}[which]
+        t = np.concatenate([q[:120], q[160:240],
+                            rng.integers(0, 4, 40).astype(np.uint8),
+                            q[240:]]) if wide else q.copy()
+        qs.append(q)
+        ts.append(t)
+    return qs, ts
+
+
+@pytest.mark.parametrize("which", ["none", "some", "all"])
+def test_align_batch_rung64_on_the_jobs_that_need_it(which, monkeypatch):
+    """align_batch runs rung 64 on the compacted sub-batch of the jobs
+    rung 16 did not accept, and gives the reference's dictionary."""
+    qs, ts = _rung_cases(which)
+    calls = []
+    real = tgd.banded_direction
+
+    def spy(q, qlen, t, dlo, n, K):
+        calls.append((K, q.shape[0]))
+        return real(q, qlen, t, dlo, n, K)
+    monkeypatch.setattr(tgd, "banded_direction", spy)
+    got = tgd.TorchDeviceGlobalAligner("cpu").align_batch(qs, ts)
+    want64 = {"none": 0, "some": 2, "all": 4}[which]
+    assert calls == [(128, 4)] + ([(256, want64)] if want64 else [])
+    assert len(got) == 4
+    assert got == jgd.DeviceGlobalAligner().align_batch(qs, ts)

@@ -220,6 +220,34 @@ print("NO_JAX_OK")
 """
 
 
+def test_dryrun_multichip_asks_for_the_card_by_default(monkeypatch):
+    """Without a device argument the dry run asks for ``cuda``; on a host
+    without a card that raises instead of carrying on on the CPU."""
+    import torch.distributed as dist
+
+    from seeksv_tpu_torch.parallel import dryrun
+    asked = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_mesh(device, n):
+        asked.append((device, n))
+        raise Stop
+    with monkeypatch.context() as mp:
+        mp.setattr(dryrun, "make_mesh", fake_mesh)
+        with pytest.raises(Stop):
+            dryrun.dryrun_multichip(1)
+        with pytest.raises(Stop):
+            dryrun.dryrun_multichip(1, "cpu")
+    assert asked == [("cuda", 1), ("cpu", 1)]
+    if not torch.cuda.is_available():
+        was = dist.is_initialized()
+        with pytest.raises(Exception):
+            dryrun.dryrun_multichip(1)
+        assert dist.is_initialized() == was
+
+
 def test_slice_modules_and_dryrun_with_jax_blocked(tmp_path):
     """The slice's modules import, and the one-rank dry run passes, in a
     process where every jax import fails."""

@@ -32,6 +32,106 @@ def extend_batch_binned_plain(q, qlen, t, tlen, h0):
     return dict(zip(ext.KEYS, out.unbind(0)))
 
 
+def finalize_pairs(rng, ms, ns, LQ, LT):
+    """Finalize jobs of the given lengths: q [B, LQ] a random sequence, t
+    [B, LT] a copy with a short indel and 3 % substitutions, code 4 past
+    m and n (and one ambiguous code inside each)."""
+    B = len(ms)
+    L = max(LQ, LT)
+    src = rng.integers(0, 4, (B, L + 16), dtype=np.uint8)
+    k = np.arange(L)[None, :]
+    q = src[:, :LQ].copy()
+    cut = rng.integers(0, L, B)[:, None]
+    off = k + np.where(k >= cut, rng.integers(0, 9, B)[:, None], 0)
+    t = np.take_along_axis(src, off, axis=1)[:, :LT].copy()
+    for a in (q, t):
+        sub = rng.random(a.shape) < 0.03
+        a[sub] = rng.integers(0, 4, int(sub.sum()))
+        a[:, 7] = 4
+    q[k[:, :LQ] >= np.asarray(ms)[:, None]] = 4
+    t[k[:, :LT] >= np.asarray(ns)[:, None]] = 4
+    return q, t
+
+
+def band_edge_lengths(w, K, LQ, LT):
+    """(ms, ns) int32 whose bands have k_real = |n - m| + 2w + 1 at every
+    edge of the direction kernel's bins and one past it (and the
+    narrowest band, the widest, and the widest that the aligner's
+    eligible() admits), with n - m of either sign, at m = 257, at m = LQ
+    and in between."""
+    from seeksv_tpu_torch.ops.global_device import (
+        BAND_EDGES, TorchDeviceGlobalAligner)
+    # the widest |n - m| that eligible() admits, at this rung
+    lim = min(kk - 2 * ww - 1 for ww, kk in TorchDeviceGlobalAligner.RUNGS)
+    widths = {2 * w + 1, lim + 2 * w + 1, K}
+    for e in BAND_EDGES[K]:
+        widths |= {e, e + 1}
+    ms, ns = [], []
+    for k_real in sorted(x for x in widths if 2 * w + 1 <= x <= K):
+        d = k_real - 2 * w - 1
+        for m in (257, (257 + LQ) // 2, LQ):
+            for n in (m + d, m - d):
+                if 257 <= n <= LT:
+                    ms.append(m)
+                    ns.append(n)
+    return np.asarray(ms, np.int32), np.asarray(ns, np.int32)
+
+
+def banded_direction_binned_plain(q, qlen, t, dlo, n, K):
+    """ops.global_device.banded_direction through the CUDA kernel's
+    dispatch with the plain version in the kernel's place: each bin's
+    jobs, in plan_band_bins' order, through banded_direction_plain, their
+    results written at the jobs' own indices."""
+    from seeksv_tpu_torch.ops import global_device as gd
+    B, LQ = q.shape
+    order, seg = gd.plan_band_bins(qlen, dlo, n, K)
+    seg = seg.tolist()
+    score = torch.empty(B, dtype=torch.int32, device=q.device)
+    dirs = torch.empty((B, LQ, K), dtype=torch.uint8, device=q.device)
+    for which in range(gd.band_launches(K)):
+        idx = order[seg[which]:seg[which + 1]].to(torch.int64)
+        if idx.numel() == 0:
+            continue
+        s, d = gd.banded_direction_plain(
+            q[idx], qlen[idx], gd.build_t2(t[idx], n[idx], dlo[idx], K, LQ),
+            dlo[idx], n[idx], K, LQ)
+        score[idx] = s
+        dirs[idx] = d
+    return score, dirs
+
+
+def sized_groups(seed, sizes, G, LL, LR, S_random=0):
+    """Consensus groups of the given numbers of reads (noisy copies of two
+    templates, full-length sides), the last S_random of them of random
+    reads that match nothing (they overflow max_slots < their size)."""
+    rng = np.random.default_rng(seed)
+    NG = len(sizes)
+    seq_l = np.zeros((NG, G, LL), np.uint8)
+    seq_r = np.zeros((NG, G, LR), np.uint8)
+    len_l = np.zeros((NG, G), np.int32)
+    len_r = np.zeros((NG, G), np.int32)
+    for k, n in enumerate(sizes):
+        tl = rng.integers(65, 69, (2, LL)).astype(np.uint8)
+        tr = rng.integers(65, 69, (2, LR)).astype(np.uint8)
+        for ri in range(n):
+            nl = int(rng.integers(LL // 2, LL + 1))
+            nr = int(rng.integers(LR // 2, LR + 1))
+            if k >= NG - S_random:
+                sl = rng.integers(65, 69, nl).astype(np.uint8)
+                sr = rng.integers(65, 69, nr).astype(np.uint8)
+            else:
+                which = int(rng.integers(0, 2))
+                sl = tl[which, LL - nl:].copy()
+                sr = tr[which, :nr].copy()
+                for s in (sl, sr):
+                    mut = rng.random(len(s)) < 0.05
+                    s[mut] = rng.integers(65, 69, int(mut.sum()))
+            seq_l[k, ri, LL - nl:] = sl
+            seq_r[k, ri, :nr] = sr
+            len_l[k, ri], len_r[k, ri] = nl, nr
+    return seq_l, len_l, seq_r, len_r, np.asarray(sizes, np.int32)
+
+
 def random_groups(seed, NG=24, G=12, LL=40, LR=36):
     """Consensus groups whose reads are noisy copies of three templates
     (so slots match, mismatch and overflow), with empty sides and empty
