@@ -17,8 +17,9 @@ Phases (each prints its lines; any failure exits non-zero):
    need over the memory rate and its int32 operations over the int32
    rate, data-dependent work counted as these inputs need it (an
    extension job's rows until tlen or z-drop, from the plain version).  No
-   single PyTorch call computes any of the kernels' functions, so
-   library_ms is null for each, with the reason beside it:
+   PyTorch call computes K4's lookup (torch.searchsorted over the full
+   keys, timed in phase 3); none computes any other kernel's function,
+   so library_ms is null for each of those, with the reason beside it:
    - K1 on the resident genome at B = 18,143 jobs, LQ 1024 / LT 1536, in
      both directions (windows off the genome and tlen = 0 rows included).
      18,143 is the flagship's job count in the TPU record
@@ -40,9 +41,14 @@ Phases (each prints its lines; any failure exits non-zero):
    - the consensus scan on groups of 0, 1, 2, 8, 9 and G reads and groups
      that overflow max_slots, and on groups of 2,000 reads, whose lengths
      and slot state are past a warp's shared memory;
-   With ``--parent DIR`` (another checkout) that checkout's banded_dir.cu
-   and consensus_scan.cu are built apart and timed in turns with this
-   one's on the same inputs; this one's must be the faster;
+   - the walk (K3) beside its bound and its sector floor (one 32-byte
+     sector per row a walk visits, over the memory rate), and on walks
+     built to leave its windows (tests/torch_inputs.py:adversarial_walks);
+   With ``--parent DIR`` (another checkout) that checkout's traceback.cu
+   and seed_lookup.cu are built apart (one nvcc each, started together)
+   and timed in turns with this one's on the same inputs (parent, this,
+   this, parent); where the two sources differ, this one's must be the
+   faster;
 3. the slice: the repo's virus-integration flagship dataset (40 Mb host
    + 12 Mb virus panel, 25x, 1 kb reads, insert mean 3000, 6,000
    integrations at 4 % divergence, error rate 0.002, seed 1) through
@@ -57,18 +63,26 @@ Phases (each prints its lines; any failure exits non-zero):
    is held against its plain version and timed beside its bound on the
    default run's own left-round jobs, K2 likewise on every direction call
    the run made (with the jobs' k_real histogram and the share that
-   reaches rung 64), and K4 (the k-mer lookup) is held
-   against its plain version on the first 1,024 strand reads of the
-   run's clip fastq (uint16 keys).  Then the SPMD
+   reaches rung 64), K3 likewise on every walk the run made (calls, live
+   walks, steps, time beside the bound and the sector floor), and K4
+   (the k-mer lookup) is held against its plain version on the first
+   1,024 strand reads of the run's clip fastq (uint16 keys), timed beside
+   torch.searchsorted over the table's full keys (a yardstick the port
+   never calls).  Then plan_bins, plan_band_bins and the K3 and K4
+   wrappers run at the run's shapes under
+   torch.cuda.set_sync_debug_mode("error") (none may wait for the card).
+   After the ``device_seed`` run, one of its chunks is seeded again:
+   its seed call's host time, and a torch.profiler table of the ten
+   device ops of its seed_core that take the most time.  Then the SPMD
    pipeline on a one-rank NCCL mesh (``parallel.mesh.make_mesh``):
    ``spmd_run_pipeline`` and ``spmd_run_pipeline_streaming`` (consensus on
    the mesh, 400,000 records per slab), each through K1w, K2, K3, K5
    (consensus scan) and K6 (discordant count) and no resident K1; K5 and
    K6 are then held against their plain versions, exactly, on the inputs
    of the SPMD run's first consensus call (plus 64 groups of random reads
-   that overflow max_slots = 8; K5 timed as its launch alone and as the
-   whole call, each beside a bound counted from the bytes it needs) and its discordant
-   call.  Then the same
+   that overflow max_slots = 8; K5 timed as its launch alone, as the call
+   the pipeline makes and with the sides' gathers, each beside a bound
+   counted from the bytes it needs) and its discordant call.  Then the same
    run with the native host kernels (``force_host``): every device run's
    ``.clip.sam``, ``.sv`` and decompressed ``.clip.gz`` must be
    byte-identical to it, no chunk may overflow to host seeding, and at
@@ -161,8 +175,6 @@ NO_LIBRARY = {
     "banded_dir": "no single PyTorch call computes a banded affine DP "
                   "with direction bytes",
     "traceback": "no single PyTorch call walks a direction matrix",
-    "seed_lookup": "torch.searchsorted has no per-query [lo, hi) bucket "
-                   "and no two-sided count",
     "consensus_scan": "no single PyTorch call runs a first-match slot "
                       "scan",
     "discordant_count": "no single PyTorch call counts predicates over "
@@ -184,35 +196,49 @@ def _nbytes(*tensors):
 
 
 # The kernels of another checkout (--parent), timed beside this one's on
-# the same inputs in the same run: banded_dir.cu and consensus_scan.cu,
-# built apart and called through their own C entry points.
-PARENT = {"lib": None}
+# the same inputs in the same run: traceback.cu and seed_lookup.cu, built
+# apart and called through their own C entry points.  "differs" says
+# which of the two sources is not this checkout's.
+PARENT = {"lib": None, "differs": {}}
+PARENT_SOURCES = ("traceback.cu", "seed_lookup.cu")
 
 
 def build_parent(parent):
-    """Build <parent>/seeksv_tpu_torch/csrc/{banded_dir,consensus_scan}.cu
-    into a library of its own and keep its handle in PARENT."""
+    """Build <parent>/seeksv_tpu_torch/csrc/{traceback,seed_lookup}.cu (one
+    nvcc each, started together) into a library of its own and keep its
+    handle in PARENT."""
     from seeksv_tpu_torch import _build
     out = os.path.join(HERE, "build", "chip_smoke_parent")
     os.makedirs(out, exist_ok=True)
-    srcs = [os.path.join(parent, "seeksv_tpu_torch", "csrc", name)
-            for name in ("banded_dir.cu", "consensus_scan.cu")]
-    path = os.path.join(out, "libparent_kernels.so")
     t0 = time.perf_counter()
-    subprocess.run([_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3",
-                    "-Xcompiler", "-fPIC", "-shared", "-o", path, *srcs],
-                   check=True)
+    jobs = []
+    for name in PARENT_SOURCES:
+        src = os.path.join(parent, "seeksv_tpu_torch", "csrc", name)
+        with open(src, "rb") as a, open(os.path.join(_build.CSRC, name),
+                                        "rb") as b:
+            PARENT["differs"][name] = a.read() != b.read()
+        obj = os.path.join(out, name + ".o")
+        jobs.append((obj, subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3", "-Xcompiler",
+             "-fPIC", "-c", "-o", obj, src])))
+    for obj, proc in jobs:
+        if proc.wait():
+            raise AssertionError(f"parent build of {obj} failed")
+    path = os.path.join(out, "libparent_kernels.so")
+    subprocess.run([_build._nvcc(), *_build.ARCH, "-shared", "-o", path,
+                    *(obj for obj, _p in jobs)], check=True)
     lib = ctypes.CDLL(path)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # q, t, dlo, m, n, B, LQ, LT, K, score, dirs, stream
-    lib.seeksv_banded_dir.argtypes = [P, P, P, P, P, I, I, I, I, P, P, P]
-    # seq_l, len_l, LL, seq_r, len_r, LR, n_reads, NG, G, S, num, den,
-    # support, n_slots, slot_of, overflow, src_l, src_r, stream
-    lib.seeksv_consensus_scan.argtypes = [P, P, I, P, P, I, P, I, I, I, LL,
-                                          LL, P, P, P, P, P, P, P]
+    # dirs, m, n, dlo, B, LQ, K, runs_len, runs_op, n_runs, stream
+    lib.seeksv_traceback.argtypes = [P, P, P, P, I, I, I, P, P, P, P]
+    # mat, lens, N, LP, k, keys, n_keys, key_bits, prefix_tab, tab_size,
+    # shift, max_occ, lo, cnt, stream
+    lib.seeksv_seed_lookup.argtypes = [P, P, I, I, I, P, LL, I, P, LL, I, I,
+                                       P, P, P]
     PARENT["lib"] = lib
     _say(f"parent kernels: {os.path.relpath(parent, HERE)} built in "
-         f"{time.perf_counter() - t0:.1f} s")
+         f"{time.perf_counter() - t0:.1f} s; differs from this checkout: "
+         f"{json.dumps(PARENT['differs'])}")
 
 
 def _parent_call(name, *args):
@@ -221,6 +247,25 @@ def _parent_call(name, *args):
         *args, torch.cuda.current_stream().cuda_stream)
     if rc:
         raise AssertionError(f"parent {name}: CUDA error {rc}")
+
+
+def _in_turns(name, run_parent, run_this, reps=3):
+    """Parent, this, this, parent, each the mean of `reps` calls by CUDA
+    events; returns (this one's two times, the parent's two)."""
+    turns = [_cuda_ms(f, reps) for f in (run_parent, run_this, run_this,
+                                         run_parent)]
+    _say(f"{name} in turns: parent {turns[0]:.4f} ms, this {turns[1]:.4f}, "
+         f"this {turns[2]:.4f}, parent {turns[3]:.4f}")
+    return turns[1:3], [turns[0], turns[3]]
+
+
+def _beats_parent(name, source, this, parent):
+    """Where the parent's `source` differs from this checkout's, both of
+    this kernel's times in turns must lie below both of the parent's."""
+    if PARENT["differs"][source] and max(this) >= min(parent):
+        raise AssertionError(f"{name}: this kernel ({this[0]:.4f} / "
+                             f"{this[1]:.4f} ms) is not below the parent's "
+                             f"({parent[0]:.4f} / {parent[1]:.4f})")
 
 
 def provenance(card):
@@ -478,7 +523,10 @@ def check_extend_mixed(dev, rng, genome, refp,
 
 def check_seed_lookup(dev, index, clip_fq, rows, n_strand=1024):
     """K4 against its plain version on the first n_strand strand reads of
-    the slice's clip fastq, against the flagship's table."""
+    the slice's clip fastq, against the flagship's table; timed beside
+    its bound, its sector floor, torch.searchsorted over the table's full
+    keys (library_ms) and, with --parent, the parent's kernel in turns.
+    Returns the lookup's arguments."""
     import torch
 
     from seeksv_tpu_torch.align.index import ENCODE
@@ -502,10 +550,45 @@ def check_seed_lookup(dev, index, clip_fq, rows, n_strand=1024):
     want_lo, want_cnt = sd.seed_lookup_plain(*args)
     torch.cuda.synchronize()
     err = _max_abs_err([(lo, want_lo), (cnt, want_cnt)])
-    ms = _cuda_ms(lambda: sd.seed_lookup(*args), 3)
+    run_this = lambda: sd.seed_lookup(*args)
+    ms = _cuda_ms(run_this, 3)
     plain_ms = _cuda_ms(lambda: sd.seed_lookup_plain(*args), 1)
-    shape = (f"N={mat.shape[0]} LP={mat.shape[1]} "
-             f"({lo.numel()} k-mers), {index.keys.dtype} keys")
+    N, LP = mat.shape
+    k, shift = index.k, seeder.shift
+    nk = LP - k + 1
+    keys, tab = seeder.keys, seeder.prefix_tab
+    shape = (f"N={N} LP={LP} ({lo.numel()} k-mers), {index.keys.dtype} "
+             f"keys")
+    # the yardstick: torch.searchsorted (both sides) over the full keys,
+    # bucket << shift | residual, built once outside the timed window
+    bucket = torch.repeat_interleave(
+        torch.arange(tab.numel() - 1, device=dev), torch.diff(tab))
+    full = (bucket << shift) | sd._widen(keys)
+    del bucket
+    hashes, ok = sd._hashes(mat, lens, k, nk)
+    library = lambda: (torch.searchsorted(full, hashes, side="left"),
+                       torch.searchsorted(full, hashes, side="right"))
+    lib_lo, lib_hi = library()
+    lib_cnt = lib_hi - lib_lo
+    hit = ok & (cnt > 0)
+    agree = bool((lib_lo[ok] == lo[ok]).all()) and bool(
+        (lib_cnt[hit] == cnt[hit]).all()) and not bool(
+        (ok & ~hit & (lib_cnt > 0) & (lib_cnt <= sd.MAX_OCC)).any())
+    library_ms = _cuda_ms(library, 3)
+    del full, lib_lo, lib_hi, lib_cnt
+    parent_ms = None
+    if PARENT["lib"]:
+        plo, pcnt = torch.empty_like(lo), torch.empty_like(cnt)
+        run_parent = lambda: _parent_call(
+            "seeksv_seed_lookup", mat.data_ptr(), lens.data_ptr(), N, LP, k,
+            keys.data_ptr(), keys.numel(),
+            16 if keys.dtype == torch.int16 else 32, tab.data_ptr(),
+            tab.numel(), shift, sd.MAX_OCC, plo.data_ptr(), pcnt.data_ptr())
+        run_parent()
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err([(plo, want_lo), (pcnt, want_cnt)]))
+        this, parent_ms = _in_turns("seed_lookup", run_parent, run_this)
+        _beats_parent("seed_lookup", "seed_lookup.cu", this, parent_ms)
     # bytes these reads need: the read matrix and lengths once, per k-mer
     # two prefix-table entries and 2 x search_iters key probes, lo and cnt
     # out; operations: the k-mer's rolling hash (3) and its probes (4 each)
@@ -513,21 +596,36 @@ def check_seed_lookup(dev, index, clip_fq, rows, n_strand=1024):
     probes = 2 * seeder.search_iters
     bound = _bound(n_kmers * (3 + 4 * probes),
                    _nbytes(mat, lens) + n_kmers * (
-                       2 * 8 + probes * seeder.keys.element_size() + 2 * 8))
+                       2 * 8 + probes * keys.element_size() + 2 * 8))
+    # the sector floor: a random 32-byte sector for the prefix pair and
+    # one for the bucket a k-mer, lo and cnt out, the reads once
+    floor_ms = (_nbytes(mat, lens) + n_kmers * (2 * 32 + 16)) \
+        / MEM_BYTES_PER_S * 1e3
+    widths = torch.diff(tab)
     _say(f"seed_lookup: {len(reads)} strand reads, {shape}, "
          f"{int((cnt > 0).sum())} k-mers with hits, search_iters="
-         f"{seeder.search_iters}, max_abs_err={err} kernel {ms:.3f} ms, "
-         f"plain {plain_ms:.3f} ms, bound {bound[0]:.4g} ms by {bound[1]}")
-    if err or not int((cnt > 0).sum()):
+         f"{seeder.search_iters}, buckets of the table: mean "
+         f"{float(widths.float().mean()):.2f} keys, "
+         f"{int((widths > 16).sum())} past 16, widest {int(widths.max())}; "
+         f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+         f"bound {bound[0]:.4g} ms by {bound[1]}, sector floor "
+         f"{floor_ms:.4g} ms, torch.searchsorted left + right over the "
+         f"{keys.numel()} full keys {library_ms:.4f} ms (agrees: {agree})"
+         + (f", parent {min(parent_ms):.4f} ms" if parent_ms else ""))
+    if err or not int((cnt > 0).sum()) or not agree:
         raise AssertionError("seed_lookup disagrees with its plain version "
-                             "or finds nothing")
+                             "or torch.searchsorted, or finds nothing")
     rows["seed_lookup"] = {
         "route": "cuda", "source": "seeksv_tpu_torch/csrc/seed_lookup.cu",
         "replaces": "seeksv_tpu/ops/seed_device.py:64",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
-        "library_why": NO_LIBRARY["seed_lookup"],
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": library_ms,
+        "library_call": "torch.searchsorted(full_keys, hashes, side='left') "
+                        "+ side='right'",
+        "sector_floor_ms": floor_ms, "parent_ms": parent_ms,
         "ms_of": f"one launch, {shape}"}
+    return args
 
 
 def _finalize_pairs(rng, B, LQ, lim):
@@ -619,10 +717,40 @@ def _banded_bound(m, n, w, K):
                          + int(m64.sum()) * K)
 
 
+def _walk_bound(got, m, n, B):
+    """(steps, bound, sector floor ms) of one walk call: the steps the
+    walks took (a finished walk's steps are its runs' lengths, an
+    overflowed one's at most m + n), the direction bytes they read (one a
+    step) and the runs written, at 12 operations a step; the floor is one
+    32-byte sector per row a walk visits (m rows) over the memory rate."""
+    import torch
+    from seeksv_tpu_torch.ops import global_device as gd
+    steps = int(torch.where(got[2] <= gd.RUNS_CAP, got[0].sum(dim=1),
+                            (m + n)).sum())
+    bound = _bound(steps * 12, steps + B * 3 * 4 + _nbytes(*got))
+    floor_ms = int(m.to(torch.int64).sum()) * 32 / MEM_BYTES_PER_S * 1e3
+    return steps, bound, floor_ms
+
+
+def _walk_parent(dirs, m, n, dlo):
+    """The parent's walk on these inputs, into outputs of its own:
+    (the launcher, its outputs)."""
+    import torch
+    B, LQ, K = dirs.shape
+    out = [torch.empty((B, 64), dtype=torch.int32, device=dirs.device),
+           torch.empty((B, 64), dtype=torch.int32, device=dirs.device),
+           torch.empty(B, dtype=torch.int32, device=dirs.device)]
+    run = lambda: _parent_call("seeksv_traceback", dirs.data_ptr(),
+                               m.data_ptr(), n.data_ptr(), dlo.data_ptr(), B,
+                               LQ, K, *(x.data_ptr() for x in out))
+    return run, out
+
+
 def check_finalize(dev, rng, rows, B=4096):
     """K2 at K = 128 / 256 on LQ 1024 and K3 on K2's output, against
     their plain versions; one chunk of 4,096 jobs (the finalize's
-    chunk at 1 GiB of direction bytes and LQ 1024)."""
+    chunk at 1 GiB of direction bytes and LQ 1024).  With --parent, K3
+    in turns with the parent's walk."""
     import torch
 
     from seeksv_tpu_torch.ops import global_device as gd
@@ -644,26 +772,6 @@ def check_finalize(dev, rng, rows, B=4096):
         torch.cuda.synchronize()
         rows_m = torch.arange(1, LQ + 1, device=dev)[None, :] <= tm[:, None]
         err = _max_abs_err([(score, ws), (dirs[rows_m], wdirs[rows_m])])
-        parent_ms = None
-        if PARENT["lib"]:
-            # the parent's kernel on the same jobs, in turns with this one
-            ps, pd = torch.empty_like(score), torch.empty_like(dirs)
-            run_parent = lambda: _parent_call(
-                "seeksv_banded_dir", tq.data_ptr(), tt.data_ptr(),
-                td.data_ptr(), tm.data_ptr(), tn.data_ptr(), B, LQ,
-                tt.shape[1], K, ps.data_ptr(), pd.data_ptr())
-            run_parent()
-            torch.cuda.synchronize()
-            err = max(err, _max_abs_err([(ps, ws),
-                                         (pd[rows_m], wdirs[rows_m])]))
-            run_new = lambda: gd.banded_direction(tq, tm, tt, td, tn, K)
-            turns = [_cuda_ms(f, 3) for f in (run_parent, run_new, run_new,
-                                              run_parent)]
-            parent_ms = [turns[0], turns[3]]
-            _say(f"banded_dir K={K} in turns: parent {turns[0]:.3f} ms, "
-                 f"this {turns[1]:.3f}, this {turns[2]:.3f}, parent "
-                 f"{turns[3]:.3f}")
-            del ps, pd
         del wdirs
         ms = _cuda_ms(lambda: gd.banded_direction(tq, tm, tt, td, tn, K), 3)
         plain_ms = _cuda_ms(lambda: gd.banded_direction_plain(
@@ -679,37 +787,44 @@ def check_finalize(dev, rng, rows, B=4096):
              f"bytes)")
         if err:
             raise AssertionError(f"banded_dir K={K} disagrees")
-        if parent_ms and ms >= min(parent_ms):
-            raise AssertionError(f"banded_dir K={K}: {ms:.3f} ms is not "
-                                 f"below the parent's {min(parent_ms):.3f}")
         a = agg["banded_dir"]
         a[0] = max(a[0], err)
         a[1].append({"K": K, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound[0], "bound_by": bound[1],
-                     "parent_ms": parent_ms, "jobs_per_bin": bins})
+                     "jobs_per_bin": bins})
         got = gd.traceback_rle(dirs, tm, tn, td)
         want = gd.traceback_rle_plain(dirs, tm, tn, td)
         torch.cuda.synchronize()
         err = _max_abs_err(list(zip(got, want)))
-        ms = _cuda_ms(lambda: gd.traceback_rle(dirs, tm, tn, td), 3)
+        run_this = lambda: gd.traceback_rle(dirs, tm, tn, td)
+        ms = _cuda_ms(run_this, 3)
         plain_ms = _cuda_ms(lambda: gd.traceback_rle_plain(dirs, tm, tn, td),
                             1)
+        parent_ms = None
+        if PARENT["lib"]:
+            run_parent, pout = _walk_parent(dirs, tm, tn, td)
+            run_parent()
+            torch.cuda.synchronize()
+            err = max(err, _max_abs_err(list(zip(pout, want))))
+            this, parent_ms = _in_turns(f"traceback K={K}", run_parent,
+                                        run_this)
+            _beats_parent(f"traceback K={K}", "traceback.cu", this,
+                          parent_ms)
         done = int((got[2] <= gd.RUNS_CAP).sum())
-        # the direction bytes these walks read (one per step; a finished
-        # walk's steps are its runs' lengths, an overflowed one's at most
-        # m + n) and the runs written; 12 operations a step
-        steps = int(torch.where(got[2] <= gd.RUNS_CAP, got[0].sum(dim=1),
-                                (tm + tn)).sum())
-        bound = _bound(steps * 12, steps + B * 3 * 4 + _nbytes(*got))
-        _say(f"traceback K={K}: B={B} max_abs_err={err} kernel {ms:.3f} ms, "
+        steps, bound, floor_ms = _walk_bound(got, tm, tn, B)
+        _say(f"traceback K={K}: B={B} max_abs_err={err} kernel {ms:.4f} ms, "
              f"plain {plain_ms:.3f} ms, bound {bound[0]:.4g} ms by "
-             f"{bound[1]} ({steps} steps; {done} walks within RUNS_CAP)")
+             f"{bound[1]} ({steps} steps x 12 ops; {done} walks within "
+             f"RUNS_CAP), sector floor {floor_ms:.4g} ms "
+             f"({int(m.sum())} rows x 32 B)"
+             + (f", parent {min(parent_ms):.4f} ms" if parent_ms else ""))
         if err or not done:
             raise AssertionError(f"traceback K={K} disagrees or is vacuous")
         a = agg["traceback"]
         a[0] = max(a[0], err)
         a[1].append({"K": K, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound[0], "bound_by": bound[1]})
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "sector_floor_ms": floor_ms, "parent_ms": parent_ms})
         del dirs
     for name, src, rep in (
             ("banded_dir", "banded_dir.cu",
@@ -731,6 +846,38 @@ def check_finalize(dev, rng, rows, B=4096):
                                 f"; K2: one launch per k_real bin and the "
                                 f"binning), B={B} LQ={LQ}"),
                       "rungs": rungs}
+
+
+def check_walks(dev):
+    """K3 against its plain version on the walks built to leave its
+    windows (tests/torch_inputs.py:adversarial_walks), at both band
+    widths; with --parent the parent's walk on them too."""
+    import torch
+    from torch_inputs import WALK_CASES, adversarial_walks
+
+    from seeksv_tpu_torch.ops import global_device as gd
+    for K in (128, 256):
+        err, n_walks, runs = 0, 0, set()
+        for case in WALK_CASES:
+            args = [torch.from_numpy(a).to(dev)
+                    for a in adversarial_walks(case, K)]
+            got = gd.traceback_rle(*args)
+            want = gd.traceback_rle_plain(*args)
+            pairs = list(zip(got, want))
+            if PARENT["lib"]:
+                run_parent, pout = _walk_parent(*args)
+                run_parent()
+                pairs += list(zip(pout, want))
+            torch.cuda.synchronize()
+            err = max(err, _max_abs_err(pairs))
+            n_walks += int(args[0].shape[0])
+            runs |= set(want[2].tolist())
+        _say(f"traceback on the adversarial walks K={K}: {n_walks} walks of "
+             f"{len(WALK_CASES)} cases, run counts {sorted(runs)}: "
+             f"max_abs_err={err}")
+        if err or not {gd.RUNS_CAP, gd.RUNS_CAP + 1} <= runs:
+            raise AssertionError("traceback disagrees on the adversarial "
+                                 "walks, or a case is missing")
 
 
 def _keep_first_call(module, name, kept):
@@ -831,8 +978,7 @@ def check_finalize_path(calls, launches, rows):
     for w, K in gd.TorchDeviceGlobalAligner.RUNGS:
         mine = [c for c in calls if c[5] == K]
         r = rungs[K] = {"calls": len(mine), "jobs": 0, "max_abs_err": 0,
-                        "ms": 0.0, "parent_ms": 0.0 if PARENT["lib"] else None,
-                        "bound_ms": 0.0, "cells": 0,
+                        "ms": 0.0, "bound_ms": 0.0, "cells": 0,
                         "jobs_per_bin": [0] * gd.band_launches(K)}
         k_all = []
         for q, qlen, t, dlo, n, _K in mine:
@@ -848,11 +994,6 @@ def check_finalize_path(calls, launches, rows):
             del wdirs, rows_m
             r["ms"] += _cuda_ms(
                 lambda: gd.banded_direction(q, qlen, t, dlo, n, K), 3)
-            if PARENT["lib"]:
-                r["parent_ms"] += _cuda_ms(lambda: _parent_call(
-                    "seeksv_banded_dir", q.data_ptr(), t.data_ptr(),
-                    dlo.data_ptr(), qlen.data_ptr(), n.data_ptr(), B, LQ,
-                    t.shape[1], K, score.data_ptr(), dirs.data_ptr()), 3)
             cells, bound = _banded_bound(qlen.cpu().numpy(), n.cpu().numpy(),
                                          w, K)
             r["jobs"] += B
@@ -878,9 +1019,8 @@ def check_finalize_path(calls, launches, rows):
              f"widths in all), jobs per k_real bin (edges "
              f"{list(reversed(gd.BAND_EDGES[K]))}) {r['jobs_per_bin']}, "
              f"{r['cells']} cells: max_abs_err={r['max_abs_err']} kernel "
-             f"{r['ms']:.3f} ms over the calls"
-             + (f" (parent {r['parent_ms']:.3f})" if PARENT["lib"] else "")
-             + f", bound {r['bound_ms']:.4g} ms")
+             f"{r['ms']:.3f} ms over the calls, bound {r['bound_ms']:.4g} "
+             f"ms")
         if r["max_abs_err"]:
             raise AssertionError("banded_dir disagrees with its plain "
                                  "version on the run's own jobs")
@@ -891,6 +1031,155 @@ def check_finalize_path(calls, launches, rows):
     rows["banded_dir"]["on_the_runs_jobs"] = {
         "share_reaching_rung_64": share,
         "rungs": [{"K": K, **r} for K, r in rungs.items()]}
+
+
+def check_traceback_path(calls, launches, rows):
+    """K3 on the default run's own walks: every walk call the run made
+    (the accepted jobs of a chunk's pass at rung 16, then at rung 64;
+    declined jobs come with m = n = 0), each against the plain version;
+    per rung the calls, the live walks and their steps, the time beside
+    the bound and the sector floor, and with --parent the parent's walk
+    in turns."""
+    import torch
+
+    from seeksv_tpu_torch.ops import global_device as gd
+    if launches["traceback"] != len(calls):
+        raise AssertionError(f"the default run made {len(calls)} walk calls "
+                             f"and counted {launches['traceback']} launches")
+    out = []
+    for _w, K in gd.TorchDeviceGlobalAligner.RUNGS:
+        mine = [c for c in calls if c[0].shape[2] == K]
+        r = {"K": K, "calls": len(mine), "walks": 0, "live_walks": 0,
+             "steps": 0, "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0,
+             "bound_ms": 0.0, "sector_floor_ms": 0.0,
+             "parent_ms": [0.0, 0.0] if PARENT["lib"] else None,
+             "ms_in_turns": [0.0, 0.0] if PARENT["lib"] else None}
+        for dirs, m, n, dlo in mine:
+            got = gd.traceback_rle(dirs, m, n, dlo)
+            want = gd.traceback_rle_plain(dirs, m, n, dlo)
+            pairs = list(zip(got, want))
+            run_this = lambda: gd.traceback_rle(dirs, m, n, dlo)
+            if PARENT["lib"]:
+                run_parent, pout = _walk_parent(dirs, m, n, dlo)
+                run_parent()
+                pairs += list(zip(pout, want))
+            torch.cuda.synchronize()
+            r["max_abs_err"] = max(r["max_abs_err"], _max_abs_err(pairs))
+            r["ms"] += _cuda_ms(run_this, 3)
+            r["plain_ms"] += _cuda_ms(
+                lambda: gd.traceback_rle_plain(dirs, m, n, dlo), 1)
+            if PARENT["lib"]:
+                this, parent = _in_turns(
+                    f"traceback on the run's walks K={K}", run_parent,
+                    run_this)
+                r["parent_ms"] = [a + b for a, b in zip(r["parent_ms"],
+                                                        parent)]
+                r["ms_in_turns"] = [a + b for a, b in zip(r["ms_in_turns"],
+                                                          this)]
+            B = dirs.shape[0]
+            steps, bound, floor_ms = _walk_bound(got, m, n, B)
+            r["walks"] += B
+            r["live_walks"] += int(((m > 0) | (n > 0)).sum())
+            r["steps"] += steps
+            r["bound_ms"] += bound[0]
+            r["bound_by"] = bound[1]
+            r["sector_floor_ms"] += floor_ms
+        _say(f"traceback on the default run's walks, K={K}: {r['calls']} "
+             f"calls, {r['walks']} jobs, {r['live_walks']} live walks, "
+             f"{r['steps']} steps: max_abs_err={r['max_abs_err']} kernel "
+             f"{r['ms']:.4f} ms over the calls, plain {r['plain_ms']:.3f} "
+             f"ms, bound {r['bound_ms']:.4g} ms, sector floor "
+             f"{r['sector_floor_ms']:.4g} ms"
+             + (f", parent {min(r['parent_ms']):.4f} ms" if PARENT["lib"]
+                else ""))
+        if r["max_abs_err"]:
+            raise AssertionError("traceback disagrees with its plain version "
+                                 "on the run's own walks")
+        if PARENT["lib"] and mine:
+            _beats_parent(f"traceback on the run's walks K={K}",
+                          "traceback.cu", r["ms_in_turns"], r["parent_ms"])
+        out.append(r)
+    if not sum(r["live_walks"] for r in out):
+        raise AssertionError("the default run walked nothing on the card")
+    rows["traceback"]["on_the_runs_walks"] = out
+
+
+def check_no_host_waits(ext_args, dir_call, walk_call, lookup_args):
+    """plan_bins, plan_band_bins and the K3 and K4 wrappers on the default
+    run's own inputs (its first extension call, its last direction and
+    walk calls) and on the lookup's, under
+    torch.cuda.set_sync_debug_mode("error"): an op that waits for the card
+    raises."""
+    import torch
+
+    from seeksv_tpu_torch.ops import extend as ext
+    from seeksv_tpu_torch.ops import global_device as gd
+    from seeksv_tpu_torch.ops import seed_device as sd
+    _q, dqlen, _t, dlo, n, K = dir_call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ext.plan_bins(ext_args[1], ext_args[3], ext_args[7])
+        gd.plan_band_bins(dqlen, dlo, n, K)
+        gd.traceback_rle(*walk_call)
+        sd.seed_lookup(*lookup_args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    _say(f"no host waits: plan_bins (B={ext_args[1].numel()}, "
+         f"LQ={ext_args[7]}), plan_band_bins (B={dqlen.numel()}, K={K}), "
+         f"traceback_rle (B={walk_call[0].shape[0]}), seed_lookup "
+         f"(N={lookup_args[0].shape[0]}) under set_sync_debug_mode('error')")
+
+
+def _device_us(e):
+    """A profiler average's own device time, in microseconds."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(e, name, None)
+        if v:
+            return v
+    return 0
+
+
+def profile_seed_chunk(kept, top=10):
+    """One chunk of the device_seed run (the first seed call it made)
+    seeded again: the seed call's host time (padding, upload, seed_core,
+    the overflow read, download), seed_core's time by CUDA events, and a
+    torch.profiler table of the ten torch ops of its seed_core with the
+    most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from seeksv_tpu_torch.ops import seed_device as sd
+    (seeder, reads, cap), _kw = kept
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seeder.seed(reads, cap)
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    mat, lens = seeder.upload(sd.pad_reads(reads, seeder.k))
+    core_ms = _cuda_ms(lambda: seeder.core(mat, lens, cap), 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        seeder.core(mat, lens, cap)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs if str(e.device_type).endswith("CUDA")]
+    kernel_ms = sum(_device_us(e) for e in kernels) / 1e3
+    ops = sorted((e for e in avgs if not str(e.device_type).endswith("CUDA")
+                  and _device_us(e) > 0), key=_device_us, reverse=True)
+    _say(f"seed chunk of the device_seed run: {len(reads)} strand reads, "
+         f"hit_cap {cap}: seed call {seed_s * 1e3:.3f} ms on the host clock, "
+         f"seed_core {core_ms:.3f} ms by CUDA events, its kernels "
+         f"{kernel_ms:.3f} ms of device time ({len(kernels)} kernels by "
+         f"name) by torch.profiler")
+    if not kernels:
+        _say("  torch.profiler shows no device time: seed_core timed by CUDA "
+             "events alone")
+        return
+    for e in ops[:top]:
+        _say(f"  {_device_us(e) / 1e3:8.3f} ms device, {e.count:4d} calls, "
+             f"{_device_us(e) / 1e3 / max(kernel_ms, 1e-9):6.1%}  {e.key}")
 
 
 def _consensus_cases(dev, G, LL, LR):
@@ -969,47 +1258,24 @@ def check_consensus_scan(kept, rows):
          f"{json.dumps({str(i): int(c) for i, c in enumerate(sizes) if c})}"
          f"; a group's live bytes are "
          f"{int(cs.live_bytes(args[1], args[3], args[4]).max())} at the most")
-    # timed twice: the launch alone (the order made before, no gathers of
-    # the sides' rows), and the whole call
+    # timed three ways: the launch alone (the order made before), the call
+    # as the pipeline makes it (mesh_consensus: with_sides=False, the
+    # ordering's torch ops in it), and the call with the gathers of the
+    # sides' rows (what the pipeline asked for before)
     launch = lambda: cs.consensus_scan_groups(
         *args, max_slots=8, with_sides=False, order=order)
-    whole = lambda: cs.consensus_scan_groups(*args, max_slots=8)
     launch_ms = _cuda_ms(launch, 3)
-    planned_ms = _cuda_ms(lambda: cs.consensus_scan_groups(
+    ms = _cuda_ms(lambda: cs.consensus_scan_groups(
         *args, max_slots=8, with_sides=False), 3)
-    ms = _cuda_ms(whole, 3)
+    sides_ms = _cuda_ms(lambda: cs.consensus_scan_groups(*args, max_slots=8),
+                        3)
     plain_ms = _cuda_ms(lambda: cs.consensus_scan_plain(*args, max_slots=8),
                         1)
-    parent_ms = None
-    if PARENT["lib"]:
-        # the parent's kernel (one launch, no gathers) on the same inputs,
-        # in turns with this one's launch
-        NG2 = args[4].numel()
-        po = {k: torch.empty_like(got[k]) for k in
-              ("support", "n_slots", "slot_of_read", "overflow", "src_l",
-               "src_r")}
-        run_parent = lambda: _parent_call(
-            "seeksv_consensus_scan", args[0].data_ptr(), args[1].data_ptr(),
-            LL, args[2].data_ptr(), args[3].data_ptr(), LR,
-            args[4].data_ptr(), NG2, G2, 8, num, den,
-            po["support"].data_ptr(), po["n_slots"].data_ptr(),
-            po["slot_of_read"].data_ptr(), po["overflow"].data_ptr(),
-            po["src_l"].data_ptr(), po["src_r"].data_ptr())
-        run_parent()
-        torch.cuda.synchronize()
-        err = max(err, _max_abs_err([(po[k], want[k]) for k in po]))
-        turns = [_cuda_ms(f, 3) for f in (run_parent, launch, launch,
-                                          run_parent)]
-        parent_ms = [turns[0], turns[3]]
-        _say(f"consensus_scan launch alone in turns: parent "
-             f"{turns[0]:.3f} ms, this {turns[1]:.3f}, this {turns[2]:.3f}, "
-             f"parent {turns[3]:.3f}")
-    # the launch's bound, from what the kernel needs: the live bytes of
-    # the live reads' sides, their two lengths, n_reads and the kernel's
-    # outputs, each once; operations: each read's two sides compared (a
-    # compare and a count per base) against at most the slots its group
-    # ends with.  The whole call's bound adds the gathered rows and lengths
-    # it writes.
+    # the bound, from what the kernel needs: the live bytes of the live
+    # reads' sides, their two lengths, n_reads and the kernel's outputs,
+    # each once; operations: each read's two sides compared (a compare and
+    # a count per base) against at most the slots its group ends with.
+    # With the sides, the gathered rows and lengths it writes are added.
     live = torch.arange(G2, device=dev)[None, :] < args[4][:, None]
     bases = ((args[1] + args[3]) * live).sum(dim=1).to(torch.int64)
     kernel_keys = ("support", "n_slots", "slot_of_read", "overflow", "src_l",
@@ -1018,39 +1284,34 @@ def check_consensus_scan(kept, rows):
                   + _nbytes(*(got[k] for k in kernel_keys)))
     gathered = _nbytes(*(v for k, v in got.items() if k not in kernel_keys))
     ops = int((bases * got["n_slots"].clamp(max=8)).sum()) * 2
-    launch_bound = _bound(ops, live_bytes)
-    bound = _bound(ops, live_bytes + gathered)
-    padded = _bound(ops, _nbytes(*args[:5]) + _nbytes(*got.values()))
+    bound = _bound(ops, live_bytes)
+    sides_bound = _bound(ops, live_bytes + gathered)
     shape = (f"the SPMD run's first call NG={NG} G={G} LL={LL} LR={LR} "
-             f"(max_slots {kw.get('max_slots')}) + 64 random groups, "
-             f"G {G2}, max_slots 8")
+             f"(max_slots {kw.get('max_slots')}, with_sides "
+             f"{kw.get('with_sides', True)}) + 64 random groups, G {G2}, "
+             f"max_slots 8")
     _say(f"consensus_scan: {shape}: {n_over} groups overflow, "
-         f"max_abs_err={err} launch alone {launch_ms:.3f} ms (bound "
-         f"{launch_bound[0]:.4g} ms by {launch_bound[1]}: {live_bytes} live "
-         f"bytes, {int(live.sum())} reads), with the ordering's torch ops "
-         f"{planned_ms:.3f}, the whole call (the gathers of the sides' rows "
-         f"too) {ms:.3f} (bound {bound[0]:.4g} ms by {bound[1]}: "
-         f"{gathered} gathered bytes more), plain {plain_ms:.3f} ms; "
-         f"counting the padded tensors and the gathered rows, as before: "
-         f"{padded[0]:.4g} ms by {padded[1]}")
+         f"max_abs_err={err} launch alone {launch_ms:.3f} ms, the call as "
+         f"the pipeline makes it (the ordering's torch ops too, no sides) "
+         f"{ms:.3f} (bound {bound[0]:.4g} ms by {bound[1]}: {live_bytes} "
+         f"live bytes, {int(live.sum())} reads), with the gathers of the "
+         f"sides' rows {sides_ms:.3f} (bound {sides_bound[0]:.4g} ms: "
+         f"{gathered} gathered bytes more), plain {plain_ms:.3f} ms")
     if err or n_over < 64:
         raise AssertionError("consensus_scan disagrees with its plain "
                              "version or the overflow groups did not")
-    if parent_ms and launch_ms >= min(parent_ms):
-        raise AssertionError(f"consensus_scan: {launch_ms:.3f} ms is not "
-                             f"below the parent's {min(parent_ms):.3f}")
+    if kw.get("with_sides", True):
+        raise AssertionError("mesh_consensus asked K5 for the sides' rows")
     rows["consensus_scan"] = {
         "route": "cuda", "source": "seeksv_tpu_torch/csrc/consensus_scan.cu",
         "replaces": "seeksv_tpu/ops/consensus_scan.py:31",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
         "library_why": NO_LIBRARY["consensus_scan"],
-        "ms_of": f"one call (one launch, the ordering and the gathers of "
-                 f"the sides' rows; the bound counts the gathered rows "
-                 f"too), {shape}",
-        "launch_ms": launch_ms, "launch_bound_ms": launch_bound[0],
-        "with_dispatch_ms": planned_ms, "padded_bound_ms": padded[0],
-        "parent_ms": parent_ms}
+        "ms_of": f"one call as mesh_consensus makes it (one launch and the "
+                 f"ordering, no sides' rows), {shape}",
+        "launch_ms": launch_ms, "with_sides_ms": sides_ms,
+        "with_sides_bound_ms": sides_bound[0]}
 
 
 def check_discordant_count(kept, rows):
@@ -1208,9 +1469,11 @@ def run_slice(dev, workdir, card, rows):
 
     from seeksv_tpu_torch.ops import extend as ext
     from seeksv_tpu_torch.ops import global_device as gd
-    kept, dir_calls = {}, []
+    from seeksv_tpu_torch.ops import seed_device as sd
+    kept, dir_calls, walk_calls = {}, [], []
     undo = [_keep_first_call(ext, "extend_batch_resident", kept),
-            _keep_calls(gd, "banded_direction", dir_calls)]
+            _keep_calls(gd, "banded_direction", dir_calls),
+            _keep_calls(gd, "traceback_rle", walk_calls)]
     try:
         drive("device", lambda: run_pipeline(
             ref, bam, os.path.join(out, "device"), device=dev, index=index))
@@ -1219,15 +1482,24 @@ def run_slice(dev, workdir, card, rows):
             u()
     check_extend_path(kept["extend_batch_resident"], rows)
     check_finalize_path(dir_calls, launches["device"], rows)
-    del dir_calls
+    check_traceback_path(walk_calls, launches["device"], rows)
     n_jobs = runs["device"]["aligner"].last_dispatch["n_jobs"]
     _say(f"slice: the default run dispatched {n_jobs} extension jobs per "
          f"direction (phase 2's K1 shape is the TPU record's 18,143)")
-    check_seed_lookup(dev, index, os.path.join(out, "device.clip.fq.gz"),
-                      rows)
-    drive("device_seed", lambda: run_pipeline(
-        ref, bam, os.path.join(out, "device_seed"), device=dev, index=index,
-        device_seed=True))
+    lookup_args = check_seed_lookup(
+        dev, index, os.path.join(out, "device.clip.fq.gz"), rows)
+    check_no_host_waits(kept["extend_batch_resident"][0], dir_calls[-1],
+                        walk_calls[-1], lookup_args)
+    del dir_calls, walk_calls, lookup_args
+    seed_kept = {}
+    undo = _keep_first_call(sd.TorchDeviceSeeder, "seed", seed_kept)
+    try:
+        drive("device_seed", lambda: run_pipeline(
+            ref, bam, os.path.join(out, "device_seed"), device=dev,
+            index=index, device_seed=True))
+    finally:
+        undo()
+    profile_seed_chunk(seed_kept.pop("seed"))
     drive("device_align", lambda: run_pipeline(
         ref, bam, os.path.join(out, "device_align"), device=dev,
         index=index, device_align=True))
@@ -1277,10 +1549,10 @@ def main() -> int:
                     help="scratch for the dataset and outputs (removed "
                          "after a passing run)")
     ap.add_argument("--parent", default=None, metavar="DIR",
-                    help="another checkout of the repo: its banded_dir.cu "
-                         "and consensus_scan.cu are built apart and timed "
-                         "in turns with this one's on the same inputs, and "
-                         "this one's must be the faster")
+                    help="another checkout of the repo: its traceback.cu "
+                         "and seed_lookup.cu are built apart and timed in "
+                         "turns with this one's on the same inputs; where "
+                         "a source differs, this one's must be the faster")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1303,6 +1575,7 @@ def main() -> int:
     check_extend_mixed(dev, rng, genome, refp)
     del genome, refp
     check_finalize(dev, rng, rows)
+    check_walks(dev)
     check_finalize_edges(dev, rng)
     check_consensus_paths(dev)
     by_run = run_slice(dev, args.workdir, card, rows)

@@ -194,6 +194,25 @@ def bin_launches(LQ: int) -> int:
     return 1 + sum(LQ > e for e in BIN_EDGES)
 
 
+def bin_of(x: torch.Tensor, edges) -> torch.Tensor:
+    """[B] int64: the bin of each x among the Python int edges, bin i for
+    edges[i-1] < x <= edges[i] (len(edges) past the last edge).  Compares
+    against Python ints: no tensor of edges, no wait for the device."""
+    b = (x > edges[0]).to(torch.int64)
+    for e in edges[1:]:
+        b += x > e
+    return b
+
+
+def bin_offsets(bin_id: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """[n_bins + 1] int32: seg[x] = the jobs in the x widest bins (those
+    with bin_id >= n_bins - x), counted by a comparison and a sum (a
+    bincount would wait for the device to size its output)."""
+    floor = torch.arange(n_bins, -1, -1, dtype=bin_id.dtype,
+                         device=bin_id.device)
+    return (bin_id[None, :] >= floor[:, None]).sum(dim=1, dtype=torch.int32)
+
+
 def plan_bins(qlen: torch.Tensor, tlen: torch.Tensor, LQ: int):
     """The kernel's dispatch of B jobs of the query bucket LQ: (order, seg).
 
@@ -203,22 +222,14 @@ def plan_bins(qlen: torch.Tensor, tlen: torch.Tensor, LQ: int):
     seg [len(BIN_EDGES) + 2] int32: the bins' offsets into order, in that
     order.  A job with no query cell or no target row does no work and
     goes to the narrowest bin; a qlen past LQ has LQ cells and is binned
-    as LQ, so every job lies in a bin that the call launches.  Torch ops
-    on the device of qlen; no synchronisation with the host."""
-    dev = qlen.device
-    n_bins = len(BIN_EDGES) + 1
+    as LQ, so every job lies in a bin that the call launches.  A few torch
+    ops on the device of qlen, none of which waits for the device."""
     q = qlen.to(torch.int64).clamp(max=LQ)
     t = tlen.to(torch.int64).clamp(min=0)
-    edges = torch.tensor(BIN_EDGES, dtype=torch.int64, device=dev)
-    bin_id = torch.bucketize(q, edges)          # edges[i-1] < qlen <= edges[i]
-    bin_id = torch.where((q <= 0) | (t <= 0), torch.zeros_like(bin_id),
-                         bin_id)
+    bin_id = torch.where((q <= 0) | (t <= 0), 0, bin_of(q, BIN_EDGES))
     key = bin_id * (1 << 44) + (q.clamp(min=0) * t).clamp(max=(1 << 44) - 1)
     order = torch.argsort(key, descending=True).to(torch.int32)
-    counts = torch.bincount(bin_id, minlength=n_bins)
-    seg = torch.zeros(n_bins + 1, dtype=torch.int64, device=dev)
-    seg[1:] = torch.cumsum(counts.flip(0), 0)
-    return order, seg.to(torch.int32)
+    return order, bin_offsets(bin_id, len(BIN_EDGES) + 1)
 
 
 def _check(name, x, dtype, shape, device):

@@ -43,7 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .extend import _check
+from .extend import _check, bin_of, bin_offsets
 
 MATCH = 1
 MISMATCH = 4
@@ -269,22 +269,12 @@ def plan_band_bins(qlen: torch.Tensor, dlo: torch.Tensor, n: torch.Tensor,
     starts first; lengths past 2^20 count as 2^20).  seg
     [len(BAND_EDGES[K]) + 1] int32: the bins' offsets into order, in that
     order.  A few torch ops on the device of qlen, none of which waits for
-    the device (the edges are Python ints, the counts a comparison and a
-    sum)."""
+    the device (extend.bin_of, extend.bin_offsets)."""
     edges = BAND_EDGES[K]
-    n_bins = len(edges)
-    k_real = band_columns(qlen, dlo, n, K)
-    # edges[i-1] < k_real <= edges[i]
-    bin_id = (k_real > edges[0]).to(torch.int32)
-    for e in edges[1:-1]:
-        bin_id += k_real > e
+    bin_id = bin_of(band_columns(qlen, dlo, n, K), edges[:-1])  # k_real <= K
     key = (bin_id << 20) + qlen.clamp(0, (1 << 20) - 1)
     order = torch.argsort(key, descending=True).to(torch.int32)
-    # seg[x] = the jobs in the x widest bins = those with bin_id >= n_bins - x
-    floor = torch.arange(n_bins, -1, -1, dtype=torch.int32,
-                         device=qlen.device)
-    seg = (bin_id[None, :] >= floor[:, None]).sum(dim=1, dtype=torch.int32)
-    return order, seg
+    return order, bin_offsets(bin_id, len(edges))
 
 
 def banded_direction(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
@@ -340,7 +330,9 @@ def traceback_rle(dirs: torch.Tensor, qlen: torch.Tensor, n: torch.Tensor,
     (qlen, n) per job (0, 0 walks nothing).  Returns (runs_len, runs_op
     [B, RUNS_CAP] int32, n_runs [B] int32; RUNS_CAP + 1 = overflow).
 
-    CUDA tensors launch csrc/traceback.cu; CPU tensors run
+    CUDA tensors launch csrc/traceback.cu (a warp a walk, over windows
+    of the coming rows fetched into shared memory; dirs 16-byte aligned,
+    as torch allocates it; no fallback); CPU tensors run
     traceback_rle_plain."""
     dev = dirs.device
     B, LQ, K = dirs.shape

@@ -190,7 +190,8 @@ def mesh_consensus(mesh, group_keys: List[tuple], group_events: List[list],
     """Consensus merge of breakpoint-key groups on the mesh
     (spmd_pipeline.py:138-205): the groups are padded to [G, L] and cut
     into one contiguous block per rank; each rank runs K5 on its block in
-    chunks of at most CONSENSUS_BUDGET bytes and uploads no qualities;
+    chunks of at most CONSENSUS_BUDGET bytes and uploads no qualities
+    (and asks K5 for no sides' rows: the host rebuilds them);
     (n_slots, overflow, support, src_l, src_r) of every group are
     all-gathered, so every rank decides the overflow retry (at
     max_slots = G) on the same values.  The host rebuilds sequences,
@@ -223,7 +224,8 @@ def mesh_consensus(mesh, group_keys: List[tuple], group_events: List[list],
             args = [torch.from_numpy(x).to(dev)
                     for x in consensus_inputs(part, G, LL, LR)]
             out = consensus_scan_groups(*args, frac.numerator,
-                                        frac.denominator, max_slots=S)
+                                        frac.denominator, max_slots=S,
+                                        with_sides=False)
             rows = table[c0:c0 + len(part)]
             rows[:, 0] = out["n_slots"]
             rows[:, 1] = out["overflow"].to(torch.int32)

@@ -240,6 +240,87 @@ def test_walk_matches_plain_on_random_dirs(cuda):
     assert (got[2] > tgd.RUNS_CAP).any()
 
 
+@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("case", ["long_gaps", "row0", "col0", "runs_cap",
+                                  "idle"])
+def test_walk_matches_plain_on_adversarial_blocks(cuda, case, K):
+    """K3 on direction blocks built to leave its windows (128 rows of one
+    32-byte sector): D and I runs past 32 and 64 steps, walks that end
+    along row 0 or column 0, exactly RUNS_CAP runs and RUNS_CAP + 1,
+    m = n = 0 jobs between live ones (tests/torch_inputs.py)."""
+    from torch_inputs import adversarial_walks
+    args = [torch.from_numpy(a).to(cuda) for a in adversarial_walks(case, K)]
+    n0 = tgd.LAUNCHES["traceback"]
+    got = tgd.traceback_rle(*args)
+    want = tgd.traceback_rle_plain(*args)
+    torch.cuda.synchronize()
+    assert tgd.LAUNCHES["traceback"] == n0 + 1
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    if case == "runs_cap":
+        assert set(want[2].tolist()) >= {tgd.RUNS_CAP, tgd.RUNS_CAP + 1}
+
+
+@pytest.mark.parametrize("key_bits", [16, 32])
+def test_seed_lookup_matches_plain_on_bucket_edges(cuda, key_bits):
+    """K4 on tables whose buckets hold 0, 1, W - 1, W, W + 1, 2W +- 1, 40,
+    100 and 70 keys (W: the keys of one 16-byte load), repeated keys, the
+    last bucket, k-mers holding code 4; the keys also at an offset of one
+    key (not 16-byte aligned)."""
+    from torch_inputs import bucket_table
+    k, keys, tab, _pos, _span, reads = bucket_table(key_bits)
+    mat, lens, _NP, _LP = tsd.pad_reads(reads, k)
+    kt = tsd.key_tensor(keys, cuda)
+    odd = torch.cat([kt[:1], kt])[1:]               # not 16-byte aligned
+    assert odd.data_ptr() % 16
+    for keys_t in (kt, odd):
+        args = (torch.from_numpy(mat).to(cuda), torch.from_numpy(lens).to(cuda),
+                keys_t, torch.from_numpy(tab).to(cuda), 2 * k - 8, k,
+                tsd.search_iterations(tab))
+        lo, cnt = tsd.seed_lookup(*args)
+        want_lo, want_cnt = tsd.seed_lookup_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(lo, want_lo) and torch.equal(cnt, want_cnt)
+    assert int((cnt > 1).sum()) > 50
+
+
+def test_dispatch_and_walk_and_lookup_wait_for_no_host(cuda):
+    """plan_bins, plan_band_bins and the K3 and K4 wrappers under
+    torch.cuda.set_sync_debug_mode("error"): none of them waits for the
+    card."""
+    from torch_inputs import adversarial_walks, bucket_table
+    rng = np.random.default_rng(2)
+    B, LQ = 500, 1024
+    qlen = torch.from_numpy(rng.integers(0, LQ + 300, B).astype(np.int32))
+    tlen = torch.from_numpy(rng.integers(0, LQ + 100, B).astype(np.int32))
+    qlen, tlen = qlen.to(cuda), tlen.to(cuda)
+    ms = rng.integers(257, LQ + 1, B).astype(np.int32)
+    ns = np.clip(ms + rng.integers(-40, 41, B), 257, LQ).astype(np.int32)
+    walk = [torch.from_numpy(a).to(cuda)
+            for a in adversarial_walks("long_gaps", 256)]
+    k, keys, tab, _pos, _span, reads = bucket_table(16)
+    mat, lens, _NP, _LP = tsd.pad_reads(reads, k)
+    look = (torch.from_numpy(mat).to(cuda), torch.from_numpy(lens).to(cuda),
+            tsd.key_tensor(keys, cuda), torch.from_numpy(tab).to(cuda),
+            2 * k - 8, k, tsd.search_iterations(tab))
+    bands = {}
+    for w, K in tgd.TorchDeviceGlobalAligner.RUNGS:
+        dlo = (np.minimum(0, ns - ms) - w).astype(np.int32)
+        bands[K] = [torch.from_numpy(a).to(cuda) for a in (ms, dlo, ns)]
+    tgd.traceback_rle(*walk)                # build the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ext.plan_bins(qlen, tlen, LQ)
+        for K, (tm, td, tn) in bands.items():
+            tgd.plan_band_bins(tm, td, tn, K)
+        tgd.traceback_rle(*walk)
+        tsd.seed_lookup(*look)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("LQ", [64, 128, 1024, 2048])
 def test_extend_windows_matches_plain(cuda, LQ):
     """The window entry (K1w) at the device front-end's shapes (LQ a

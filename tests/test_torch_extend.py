@@ -314,3 +314,38 @@ def test_qlen_past_the_bucket_is_binned_as_the_bucket(LQ):
         assert torch.equal(got[k], whole[k]), k
     assert got["gscore"][0] == ext.NEG_INF and got["gtle"][0] == 0
     assert got["max_score"][0] > 60 or LQ < 100
+
+
+@pytest.mark.parametrize("LQ", [96, 512, 1024, 1536])
+def test_plan_bins_matches_numpy(LQ):
+    """plan_bins against a numpy restatement: qlen at every bin edge - 1,
+    edge and edge + 1, qlen past LQ, qlen 0 and tlen 0 jobs.  seg exactly;
+    order a permutation that lists each bin's jobs (widest bin first) by
+    falling qlen x tlen."""
+    rng = np.random.default_rng(LQ)
+    edges = [e + d for e in ext.BIN_EDGES for d in (-1, 0, 1)]
+    qlen = np.asarray(edges + [0, 0, 1, LQ, LQ + 1, LQ + 500] +
+                      rng.integers(0, LQ + 1, 40).tolist(), np.int32)
+    tlen = rng.integers(0, LQ + 64, len(qlen)).astype(np.int32)
+    tlen[[1, 5, len(edges) + 2]] = 0
+    perm = rng.permutation(len(qlen))
+    qlen, tlen = qlen[perm], tlen[perm]
+    order, seg = ext.plan_bins(torch.from_numpy(qlen), torch.from_numpy(tlen),
+                               LQ)
+    assert order.dtype == seg.dtype == torch.int32
+    order, seg = order.numpy(), seg.numpy()
+    q = np.minimum(qlen.astype(np.int64), LQ)
+    t = np.maximum(tlen.astype(np.int64), 0)
+    want_bin = np.searchsorted(ext.BIN_EDGES, q, side="left")
+    want_bin[(q <= 0) | (t <= 0)] = 0
+    n_bins = len(ext.BIN_EDGES) + 1
+    counts = np.bincount(want_bin, minlength=n_bins)
+    np.testing.assert_array_equal(
+        seg, np.concatenate([[0], np.cumsum(counts[::-1])]))
+    assert sorted(order.tolist()) == list(range(len(qlen)))
+    key = want_bin * (1 << 44) + np.minimum(np.maximum(q, 0) * t,
+                                            (1 << 44) - 1)
+    assert (np.diff(key[order]) <= 0).all()
+    for which in range(n_bins):
+        assert (want_bin[order[seg[which]:seg[which + 1]]]
+                == n_bins - 1 - which).all()

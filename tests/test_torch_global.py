@@ -139,12 +139,12 @@ def _scalar_walk(d, m, n, dlo):
     return ops[::-1]    # walk order -> forward order
 
 
-def test_walk_plain_matches_xla_walk_and_scalar_walker():
-    rng = np.random.default_rng(4)
-    B, LQ, K = 24, 96, 128
-    d, ms, ns, dlo = _random_dirs(rng, B, LQ, K)
+def _walk_matches_xla_and_scalar(d, ms, ns, dlo):
+    """The plain walk (the wrapper on CPU tensors) against the XLA walk
+    over the [LQ, B, K] layout (budget m + n + 1 steps) and the scalar
+    walker; returns its (runs_len, runs_op, n_runs) as numpy."""
+    B, LQ, K = d.shape
     got = tgd.traceback_rle(*(torch.from_numpy(a) for a in (d, ms, ns, dlo)))
-    # the XLA walk over the [LQ, B, K] layout, budget m + n + 1 steps
     dummy = jnp.zeros((B, LQ), jnp.int32)
     ref = jgd.traceback_rle(jnp.asarray(d.transpose(1, 0, 2)), dummy, dummy,
                             jnp.asarray(ms), jnp.asarray(ns),
@@ -152,14 +152,52 @@ def test_walk_plain_matches_xla_walk_and_scalar_walker():
                             T=int((ms + ns).max()) + 1)
     _assert_same_runs(got, ref)
     rl, ro, nr = (x.numpy() for x in got)
-    assert (nr > tgd.RUNS_CAP).any() and (nr <= tgd.RUNS_CAP).any()
-    opc = "MID"
     for b in range(B):
         ops = _scalar_walk(d[b:b + 1], int(ms[b]), int(ns[b]), int(dlo[b]))
         if len(ops) > tgd.RUNS_CAP:
             assert nr[b] == tgd.RUNS_CAP + 1
             continue
-        assert [[int(rl[b, k]), opc[ro[b, k]]] for k in range(nr[b])] == ops
+        assert [[int(rl[b, k]), "MID"[ro[b, k]]] for k in range(nr[b])] == ops
+    return rl, ro, nr
+
+
+def test_walk_plain_matches_xla_walk_and_scalar_walker():
+    rng = np.random.default_rng(4)
+    _rl, _ro, nr = _walk_matches_xla_and_scalar(*_random_dirs(rng, 24, 96,
+                                                               128))
+    assert (nr > tgd.RUNS_CAP).any() and (nr <= tgd.RUNS_CAP).any()
+
+
+@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("case", ["long_gaps", "row0", "col0", "runs_cap",
+                                  "idle"])
+def test_walk_plain_matches_xla_walk_on_adversarial_blocks(case, K):
+    """Direction blocks built to leave any window of the card's walk (128
+    rows of one 32-byte sector; tests/torch_inputs.py:adversarial_walks):
+    D and I runs past 32 and 64 steps, walks that end along row 0 or
+    column 0, exactly RUNS_CAP runs and RUNS_CAP + 1, m = n = 0 jobs
+    between live ones.  The plain walk against the XLA walk and the scalar
+    walker, exactly."""
+    from torch_inputs import adversarial_walks
+    d, ms, ns, dlo = adversarial_walks(case, K)
+    B = d.shape[0]
+    rl, ro, nr = _walk_matches_xla_and_scalar(d, ms, ns, dlo)
+    longest = {op: max([int(rl[b, k]) for b in range(B) for k in range(nr[b])
+                        if nr[b] <= tgd.RUNS_CAP and "MID"[ro[b, k]] == op],
+                       default=0) for op in "MID"}
+    assert longest["M"] >= 600          # a walk through five windows
+    # forward order: a walk's last steps are its first run
+    first = [("MID"[ro[b, 0]], int(rl[b, 0]))
+             for b in range(B) if 0 < nr[b] <= tgd.RUNS_CAP]
+    if case == "long_gaps":
+        assert longest["D"] > 64 and longest["I"] > 64
+    elif case in ("row0", "col0"):      # the tail along row / column 0
+        tail = "D" if case == "row0" else "I"
+        assert {(tail, 40), (tail, 70), (tail, 1)} <= set(first)
+    elif case == "runs_cap":
+        assert {tgd.RUNS_CAP, tgd.RUNS_CAP + 1} <= set(nr.tolist())
+    else:
+        assert (nr == 0).sum() == 4 and (ms == 0).sum() == 4
 
 
 def test_walk_has_no_step_budget():

@@ -201,3 +201,71 @@ def test_lookup_rejects_bad_inputs():
         tsd.seed_lookup(mat, lens, keys, tab, 0, 40, 1)
     with pytest.raises(TypeError):
         tsd.key_tensor(np.zeros(3, np.uint64), "cpu")
+
+
+def _bucket_index(key_bits):
+    """tests/torch_inputs.py:bucket_table as the JAX package's KmerIndex
+    (the host index of the reference), with its reads."""
+    from torch_inputs import bucket_table
+    k, keys, tab, pos, ref_span, reads = bucket_table(key_bits)
+    idx = KmerIndex(k, np.zeros(ref_span, np.uint8), ["c"],
+                    np.asarray([0, ref_span], np.int64), keys, pos, tab)
+    return idx, reads
+
+
+@pytest.mark.parametrize("key_bits", [16, 32])
+def test_lookup_plain_matches_host_index_on_bucket_edges(key_bits):
+    """K4's plain version against KmerIndex.hash_read + lookup on a table
+    whose buckets hold 0, 1, W - 1, W, W + 1, 2W +- 1, 40, 100 and 70 keys
+    (W: the keys of one 16-byte load), with repeated keys, 16- and 32-bit
+    residuals, the first and the last bucket, and k-mers holding code 4."""
+    idx, reads = _bucket_index(key_bits)
+    assert idx.keys.dtype == (np.uint16 if key_bits == 16 else np.uint32)
+    W = 16 // idx.keys.dtype.itemsize
+    widths = set(np.diff(idx.prefix_tab).tolist())
+    assert {0, 1, W - 1, W, W + 1, 100} <= widths and max(widths) > 64
+    mat, lens, NP, LP = tsd.pad_reads(reads, idx.k)
+    lo, cnt = tsd.seed_lookup(
+        torch.from_numpy(mat), torch.from_numpy(lens),
+        tsd.key_tensor(idx.keys, "cpu"), torch.from_numpy(idx.prefix_tab),
+        idx._prefix_shift(idx.k), idx.k,
+        tsd.search_iterations(idx.prefix_tab))
+    nk = LP - idx.k + 1
+    lo = lo.numpy().reshape(NP, nk)
+    cnt = cnt.numpy().reshape(NP, nk)
+    hit_widths = set()
+    for i, r in enumerate(reads):
+        offs, hashes = idx.hash_read(r)
+        want_cnt = np.zeros(nk, np.int64)
+        if len(offs):
+            h_lo, h_hi = idx.lookup(hashes)
+            c = h_hi - h_lo
+            want_cnt[offs] = np.where((c > 0) & (c <= tsd.MAX_OCC), c, 0)
+            np.testing.assert_array_equal(lo[i, offs], h_lo, err_msg=str(i))
+            p = (hashes >> np.uint64(idx._prefix_shift(idx.k))).astype(int)
+            hit_widths |= set(np.diff(idx.prefix_tab)[p[c > 0]].tolist())
+        np.testing.assert_array_equal(cnt[i], want_cnt, err_msg=f"read {i}")
+    assert (cnt > 1).sum() > 50                      # repeated keys
+    assert {1, W - 1, W, W + 1, 100, 70} <= hit_widths
+    assert any((r == 4).any() and len(r) > 2 * idx.k for r in reads)
+
+
+def test_seed_core_matches_jax_on_bucket_edges():
+    """seed_core against the JAX _seed_kernel on the bucket-edge table
+    (uint16 residuals)."""
+    idx, reads = _bucket_index(16)
+    mat, lens, NP, LP = tsd.pad_reads(reads, idx.k)
+    got = tsd.TorchDeviceSeeder.from_index(idx, "cpu").core(
+        torch.from_numpy(mat), torch.from_numpy(lens), 1 << 14)
+    jseed = jsd.DeviceSeeder(idx)
+    with jax.enable_x64(True):
+        want = jsd._seed_kernel(
+            jseed.keys, jseed.prefix_tab, jnp.int64(jseed.shift),
+            jseed.positions, jnp.asarray(mat), jnp.asarray(lens),
+            jnp.int64(jseed.ref_span), k=idx.k, hit_cap=1 << 14, n_jobs=NP,
+            nk=LP - idx.k + 1)
+        want = [np.asarray(x) for x in want]
+    names = ("diag", "q_start", "anchor_len", "votes", "n_cand", "overflow")
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    assert not bool(got[5]) and int(got[4].sum()) > 100

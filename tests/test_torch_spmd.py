@@ -202,6 +202,63 @@ def test_engine_mesh_branch_matches_no_mesh(dataset, mesh1):
     assert ext.PLAIN_CALLS["extend_left"] == n1["extend_left"]
 
 
+def _consensus_groups(rng, n_groups=30):
+    """Breakpoint-key groups of 1 to 14 reads, as getclip's events (pos,
+    left side, its qualities, right side, its qualities, CIGAR): noisy
+    copies of two templates with sides of varying length, every fifth
+    group of random reads (more than 8 slots: the overflow retry)."""
+    keys, events = [], []
+    for g in range(n_groups):
+        tl = rng.integers(0, 4, 60).astype(np.uint8)
+        tr = rng.integers(0, 4, 50).astype(np.uint8)
+        evs = []
+        for r in range(int(rng.integers(1, 15))):
+            a, b = (tl, tr) if r % 3 else (tl[::-1].copy(), tr[::-1].copy())
+            if g % 5 == 4:
+                a, b = rng.integers(0, 4, 60), rng.integers(0, 4, 50)
+            s_l = bytes(np.frombuffer(b"ACGT", np.uint8)[
+                a[-int(rng.integers(1, 61)):]])
+            s_r = bytes(np.frombuffer(b"ACGT", np.uint8)[
+                b[:int(rng.integers(1, 51))]])
+            evs.append((1000 + g, np.frombuffer(s_l, np.uint8),
+                        np.full(len(s_l), 30, np.uint8),
+                        np.frombuffer(s_r, np.uint8),
+                        np.full(len(s_r), 31, np.uint8), f"{len(s_r)}M"))
+        keys.append((0, g % 2, 1000 + g))
+        events.append(evs)
+    return keys, events
+
+
+def test_mesh_consensus_asks_for_no_sides(mesh1, monkeypatch):
+    """mesh_consensus reads n_slots, overflow, support and the source
+    indices only, so it calls K5 with with_sides=False (a spy on the
+    call); its one-rank result equals the JAX package's mesh_consensus on
+    make_mesh(1), overflow retry included."""
+    from seeksv_tpu.parallel.spmd_pipeline import \
+        mesh_consensus as jax_mesh_consensus
+    from seeksv_tpu_torch.parallel import spmd_pipeline as sp
+    keys, events = _consensus_groups(np.random.default_rng(5))
+    calls = []
+    real = sp.consensus_scan_groups
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(sp, "consensus_scan_groups", spy)
+    got = sp.mesh_consensus(mesh1, keys, events, 0.85)
+    assert len(calls) == 2                  # max_slots 8, then the retry
+    assert all(kw.get("with_sides") is False for kw in calls)
+    want = jax_mesh_consensus(jax_make_mesh(1), keys, events, 0.85)
+
+    def plain(consensus):
+        return {k: [tuple(x.tobytes() if isinstance(x, np.ndarray) else x
+                          for x in e) for e in v]
+                for k, v in consensus.items()}
+    assert plain(got) == plain(want)
+    assert max(len(v) for v in got.values()) > 8
+    assert max(e[5] for v in got.values() for e in v) > 3
+
+
 _NO_JAX = """
 import sys
 sys.modules["jax"] = None
