@@ -82,11 +82,27 @@ Phases (each prints its lines; any failure exits non-zero):
    of the SPMD run's first consensus call (plus 64 groups of random reads
    that overflow max_slots = 8; K5 timed as its launch alone, as the call
    the pipeline makes and with the sides' gathers, each beside a bound
-   counted from the bytes it needs) and its discordant call.  Then the same
-   run with the native host kernels (``force_host``): every device run's
-   ``.clip.sam``, ``.sv`` and decompressed ``.clip.gz`` must be
-   byte-identical to it, no chunk may overflow to host seeding, and at
-   least 90 % of the virus junctions of the truth must be called.
+   counted from the bytes it needs) and its discordant call.  On the same
+   one-rank mesh, the distributed half (``parallel.multiproc``,
+   ``parallel.sharded``; two ranks cannot share one card under NCCL, so
+   the range cuts, the boundary exchange and the clip halo do not fire
+   here): ``multiprocess_run_pipeline`` (through K1 both ways, K2 and K3,
+   as the default run), ``multiprocess_somatic_range`` and
+   ``multiprocess_somatic`` with the flagship BAM as its own normal
+   against the default run's ``.sv`` (no kernel: the coverage step is
+   torch ops on the card), whose temp and final files must be
+   byte-identical to the port's sequential getclip + somatic +
+   somatic_filter on the same inputs, and ``sharded_evidence_step`` on
+   ``make_example_batch`` at 52 Mb, 1,000,000 reads and 8,192 jobs of LQ
+   1024 / LT 1152 (through K1w), whose extension results must equal K1w's
+   plain version on the same jobs and whose coverage, insert statistics
+   and candidate table must equal a numpy recomputation; K1w is timed on
+   those jobs beside its bound.  Then the same run with the native host
+   kernels (``force_host``): every device run's ``.clip.sam``, ``.sv``
+   and decompressed ``.clip.gz`` (the multi-process run's own rank-0
+   clip files) must be byte-identical to it, no chunk may overflow to
+   host seeding, and at least 90 % of the virus junctions of the truth
+   must be called.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -1367,7 +1383,16 @@ EXPECTED = {
                             "traceback"),
     "spmd": SPMD,
     "stream_spmd": SPMD,
+    "multiproc": ("extend_left", "extend_right", "banded_dir", "traceback"),
+    "multiproc_somatic_range": (),
+    "multiproc_somatic": (),
+    "evidence": ("extend_windows",),
 }
+# the runs that write the pipeline's outputs, each compared with
+# force_host's; the multi-process run's clip files are its rank 0's
+PIPELINE_RUNS = ("device", "device_seed", "device_align",
+                 "stream_device_align", "spmd", "stream_spmd", "multiproc")
+CLIP_PREFIX = {"multiproc": "multiproc.p0"}
 
 
 def _counters():
@@ -1440,8 +1465,145 @@ def run_spmd(dev, ref, bam, out, index, rows, drive):
             log=lambda m: _say(f"  stream_spmd: {m}")))
         check_consensus_scan(kept["consensus_scan_groups"], rows)
         check_discordant_count(kept["discordant_count_batch"], rows)
+        run_multiproc(mesh, ref, bam, out, index, drive)
+        run_evidence(mesh, rows, drive)
     finally:
         dist.destroy_process_group()
+
+
+def _timed(fn, **kw):
+    """fn(stages=..., **kw) as a run of the slice: {"stages_s", "out"}."""
+    stages = {}
+    return {"stages_s": stages, "out": fn(stages=stages, **kw)}
+
+
+def run_multiproc(mesh, ref, bam, out, index, drive):
+    """The multi-process pipeline and both somatic forms on the one-rank
+    mesh.  The somatic runs take the flagship BAM as its own normal
+    against the default run's .sv; their temp and final files must equal
+    the port's sequential getclip + somatic + somatic_filter on the same
+    inputs."""
+    from seeksv_tpu_torch.parallel import multiproc as mp
+    from seeksv_tpu_torch.pipeline.getclip import getclip
+    from seeksv_tpu_torch.pipeline.somatic import somatic, somatic_filter
+    drive("multiproc", lambda: _timed(
+        mp.multiprocess_run_pipeline, mesh=mesh, ref_fa=ref, bam=bam,
+        prefix=os.path.join(out, "multiproc"), index=index,
+        log=lambda m: _say(f"  multiproc: {m}")))
+    tumor_sv = os.path.join(out, "device.sv")
+    for name, fn, tag in (
+            ("multiproc_somatic_range", mp.multiprocess_somatic_range, "mpr"),
+            ("multiproc_somatic", mp.multiprocess_somatic, "mps")):
+        drive(name, lambda: _timed(
+            fn, mesh=mesh, normal_bam=bam, tumor_sv=tumor_sv,
+            out_temp=os.path.join(out, f"{tag}.temp.sv"),
+            out_final=os.path.join(out, f"{tag}.somatic.sv"),
+            prefix=os.path.join(out, tag),
+            log=lambda m: _say(f"  {name}: {m}")))
+    t0 = time.perf_counter()
+    getclip(bam, os.path.join(out, "seqn"))
+    somatic(bam, os.path.join(out, "seqn.clip.gz"), tumor_sv,
+            os.path.join(out, "seq.temp.sv"))
+    somatic_filter(os.path.join(out, "seq.temp.sv"),
+                   os.path.join(out, "seq.somatic.sv"))
+    seq_s = time.perf_counter() - t0
+    want = {}
+    for suffix in ("temp.sv", "somatic.sv"):
+        with open(os.path.join(out, f"seq.{suffix}"), "rb") as f:
+            want[suffix] = f.read()
+    for tag in ("mpr", "mps"):
+        for suffix in ("temp.sv", "somatic.sv"):
+            with open(os.path.join(out, f"{tag}.{suffix}"), "rb") as f:
+                if f.read() != want[suffix]:
+                    raise AssertionError(f"{tag}.{suffix} differs from the "
+                                         "sequential somatic pass")
+    rows = [ln.split("\t") for ln in want["temp.sv"].decode().splitlines()
+            if not ln.startswith("@")]
+    counted = sum(1 for r in rows if r[23:26] != ["0", "0", "0"])
+    final = sum(1 for ln in want["somatic.sv"].decode().splitlines()
+                if not ln.startswith("@"))
+    _say(f"multiproc somatic: temp and final files of both forms "
+         f"byte-identical to the sequential pass ({seq_s:.1f} s): "
+         f"{len(rows)} tumor rows, {counted} with nonzero control counts, "
+         f"{final} left after the filter")
+    if not counted:
+        raise AssertionError("the somatic check is vacuous: no tumor row "
+                             "found support in its own normal")
+
+
+def run_evidence(mesh, rows, drive, genome_len=52_000_000,
+                 n_reads=1_000_000, n_jobs=8192, lq=1024, lt=1152):
+    """sharded_evidence_step on make_example_batch at the flagship's
+    genome and K1w's front-end shape on the one-rank mesh: its extension
+    results against K1w's plain version on the same jobs, its coverage,
+    insert statistics and candidate table against a numpy recomputation;
+    K1w timed on those jobs beside its bound."""
+    import torch
+
+    from seeksv_tpu_torch.ops import extend as ext
+    from seeksv_tpu_torch.parallel import sharded
+    t0 = time.perf_counter()
+    batch = sharded.make_example_batch(mesh, genome_len, n_reads, n_jobs,
+                                       lq, lt)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    step = sharded.sharded_evidence_step(mesh, genome_len)
+
+    def run():
+        t = time.perf_counter()
+        res = step(batch)
+        torch.cuda.synchronize()
+        return {"stages_s": {"batch": batch_s,
+                             "step": time.perf_counter() - t}, "out": res}
+    res = drive("evidence", run)["out"]
+    q, t = batch["q"].to(torch.uint8), batch["t"].to(torch.uint8)
+    jobs = (q, batch["qlen"], t, batch["tlen"], batch["h0"])
+    want = ext.extend_batch_plain(*jobs, with_rows=True)
+    torch.cuda.synchronize()
+    err = _max_abs_err([(res["sw"][k], want[k]) for k in ext.KEYS])
+    ms = _cuda_ms(lambda: ext.extend_batch(*jobs), 3)
+    plain_ms = _cuda_ms(lambda: ext.extend_batch_plain(*jobs), 1)
+    cells, count, bound = _extend_bound(batch["qlen"], want, 1, 1)
+    # the numpy recomputation of the rest (sharded.py:36-77)
+    b = {k: v.cpu().numpy() for k, v in batch.items()}
+    diff = np.bincount(np.clip(b["seg_start"], 0, genome_len),
+                       b["seg_weight"], minlength=genome_len + 1) \
+        - np.bincount(np.clip(b["seg_end"], 0, genome_len),
+                      b["seg_weight"], minlength=genome_len + 1)
+    cov = np.cumsum(diff.astype(np.int64))[:genome_len]
+    hist = np.bincount(np.clip(b["isize"], 0, 2047), b["isize_ok"],
+                       minlength=2048).astype(np.int64)
+    n = max(int(hist.sum()), 1)
+    mean = int((hist * np.arange(2048)).sum() // n)
+    var = float((hist * (np.arange(2048) - mean) ** 2).sum()) / n
+    order = np.argsort(b["cand_key"], kind="stable")
+    sk = b["cand_key"][order]
+    first = np.concatenate([[True], sk[1:] != sk[:-1]])
+    seg = np.bincount(np.cumsum(first) - 1, b["cand_support"][order],
+                      minlength=len(sk)).astype(np.int64)
+    got = {k: res[k].cpu().numpy() for k in res if k != "sw"}
+    bad = [k for k, ok in (
+        ("coverage", np.array_equal(got["coverage"], cov)),
+        ("insert_mean", int(got["insert_mean"][0]) == mean),
+        ("insert_dev", int(got["insert_dev"][0]) == int(np.sqrt(var))),
+        ("cand_sorted_keys", np.array_equal(got["cand_sorted_keys"], sk)),
+        ("cand_first", np.array_equal(got["cand_first"], first)),
+        ("cand_support_sum", np.array_equal(got["cand_support_sum"], seg)))
+        if not ok]
+    _say(f"evidence: genome {genome_len}, {n_reads} reads, {n_jobs} jobs "
+         f"LQ={lq} LT={lt}: insert mean {mean} dev "
+         f"{int(got['insert_dev'][0])} (numpy {np.sqrt(var):.4f}), "
+         f"{int(first.sum())} candidate keys, coverage max {cov.max()}; "
+         f"K1w max_abs_err={err} kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+         f"ms, bound {bound[0]:.4g} ms by {bound[1]} ({count}); "
+         f"differs from numpy: {bad}")
+    if err or bad:
+        raise AssertionError(f"the evidence step disagrees: sw "
+                             f"max_abs_err={err}, {bad}")
+    rows["extend_windows"]["on_the_evidence_jobs"] = {
+        "B": n_jobs, "LQ": lq, "LT": lt, "cells": cells, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+        "bound_by": bound[1]}
 
 
 def run_slice(dev, workdir, card, rows):
@@ -1466,6 +1628,7 @@ def run_slice(dev, workdir, card, rows):
 
     def drive(name, fn):
         runs[name], launches[name] = _drive(name, fn)
+        return runs[name]
 
     from seeksv_tpu_torch.ops import extend as ext
     from seeksv_tpu_torch.ops import global_device as gd
@@ -1512,9 +1675,11 @@ def run_slice(dev, workdir, card, rows):
                                       index=index)
     for name, res in runs.items():
         st = {k: round(v, 3) for k, v in res["stages_s"].items()}
-        al = {k: round(v, 3) for k, v in res["aligner"].timings.items()}
-        _say(f"slice {name} on {card}: stages_s {json.dumps(st)} "
-             f"aligner_s {json.dumps(al)}")
+        line = f"slice {name} on {card}: stages_s {json.dumps(st)}"
+        if "aligner" in res:
+            al = {k: round(v, 3) for k, v in res["aligner"].timings.items()}
+            line += f" aligner_s {json.dumps(al)}"
+        _say(line)
     _say(f"slice: dispatch {json.dumps(runs['device']['aligner'].last_dispatch)}")
     host = {}
     for suffix in ("clip.sam", "sv"):
@@ -1522,9 +1687,10 @@ def run_slice(dev, workdir, card, rows):
             host[suffix] = f.read()
     with gzip.open(os.path.join(out, "host.clip.gz")) as f:
         host["clip.gz"] = f.read()
-    for name in EXPECTED:
+    for name in PIPELINE_RUNS:
         for suffix in ("clip.sam", "sv", "clip.gz"):
-            path = os.path.join(out, f"{name}.{suffix}")
+            stem = name if suffix == "sv" else CLIP_PREFIX.get(name, name)
+            path = os.path.join(out, f"{stem}.{suffix}")
             opener = gzip.open if suffix.endswith(".gz") else open
             with opener(path, "rb") as f:
                 if f.read() != host[suffix]:

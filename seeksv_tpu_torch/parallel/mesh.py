@@ -25,6 +25,7 @@ import math
 import warnings
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -124,3 +125,32 @@ def all_reduce_sum(mesh: DeviceMesh, x: torch.Tensor,
     group."""
     dist.all_reduce(x, group=None if axis is None else mesh.get_group(axis))
     return x
+
+
+def process_allgather(mesh: DeviceMesh, a: np.ndarray) -> np.ndarray:
+    """[world, *a.shape]: every rank's `a`, in rank order (the port's
+    ``multihost_utils.process_allgather`` as seeksv_tpu/parallel/
+    multiproc.py uses it).  Every rank passes the same shape and dtype:
+    callers pad to an agreed cap.  The bytes go round as one uint8 tensor
+    on this rank's device (CUDA under NCCL, CPU under gloo), so any dtype,
+    bool included, comes back as it went; a zero-size array enters no
+    collective (every rank has the same shape, so every rank skips)."""
+    a = np.ascontiguousarray(a)
+    world = dist.get_world_size()
+    if a.size == 0:
+        return np.zeros((world, *a.shape), a.dtype)
+    raw = torch.tensor(a.reshape(-1).view(np.uint8), device=mesh_device(mesh))
+    out = all_gather(mesh, raw).cpu().numpy()
+    return out.view(a.dtype).reshape(world, *a.shape)
+
+
+def process_allgather_ragged(mesh: DeviceMesh, a: np.ndarray
+                             ) -> List[np.ndarray]:
+    """Every rank's 1-D `a`, of any length, in rank order: the lengths
+    gathered, then each `a` padded to the longest and gathered."""
+    lens = process_allgather(mesh, np.asarray([len(a)], np.int64))
+    lens = lens.reshape(-1)
+    padded = np.zeros(int(lens.max()), a.dtype)
+    padded[:len(a)] = a
+    allv = process_allgather(mesh, padded)
+    return [allv[p, :lens[p]] for p in range(len(lens))]

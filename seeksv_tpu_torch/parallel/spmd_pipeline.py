@@ -65,7 +65,7 @@ from ..pipeline.getsv import (DepthQuery, DiscordantCounter, JunctionMap,
                               junction_event, output_breakpoints)
 from ..pipeline.junctions import SeqInfo
 from .mesh import (agree, all_gather, all_reduce_sum, mesh_device,
-                   shard_index)
+                   process_allgather_ragged, shard_index)
 
 _OPS = "MIDNSHP=X"
 _OP_IDX = {c: i for i, c in enumerate(_OPS)}
@@ -856,6 +856,72 @@ def spmd_coverage_insert(mesh, recs: BamRecords, min_mapq: int,
     mean, dev_ = _insert_stats_from_hist(hist, extra)
     cov_by_tid = {t: cov[offsets[t]:offsets[t + 1]]
                   for t in range(len(recs.ref_names))}
+    return cov_by_tid, mean, dev_
+
+
+def multiprocess_coverage_insert(mesh, local_recs: BamRecords,
+                                 min_mapq: int, read_pair_used: int):
+    """The multi-process form of spmd_coverage_insert (spmd_pipeline.py:
+    855-960): every rank holds only its own contiguous range of the BAM's
+    records, rank r the r-th range in file order, and no rank sees the
+    whole file.  Each rank is one data shard of the mesh (JAX's
+    n_local_dev shards a process become one shard a rank): it
+    scatter-adds its own depth segments, the diffs are summed over every
+    rank, each gp rank prefix-sums and keeps its genome block and the
+    blocks are gathered over gp; the first-N proper-pair mask takes its
+    offset from the qualifying counts of the ranks before this one (an
+    all-gather in rank order, which is file order) and the histogram is
+    summed over every rank.  isize >= HIST_SIZE spills: each rank's
+    first-N overflow values are gathered in rank order and
+    replace the top bin's clamped entries.  Every rank passes the same
+    reference dictionary (checked).  Returns (cov {tid: int32 array},
+    mean, dev), identical to the one-process pass."""
+    g = mesh.get_coordinate()[1]
+    gp = mesh.shape[1]
+    dev = mesh_device(mesh)
+    offsets = np.concatenate(
+        [[0], np.cumsum(local_recs.ref_lens)]).astype(np.int64)
+    g_total = int(offsets[-1])
+    hi, neg_lo = agree(mesh, [g_total, -g_total])
+    if (hi, -neg_lo) != (g_total, g_total):
+        raise ValueError("the ranks hold BAMs of different reference "
+                         f"dictionaries ({-neg_lo} to {hi} bp)")
+    block = -(-(g_total + 1) // gp)
+    g_pad = block * gp
+
+    flat_start, flat_end = _flat_segments(local_recs, min_mapq, offsets,
+                                          g_pad)
+    ok, isize_c, over_c = _insert_columns(local_recs, min_mapq)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    diff = cov_ops.segment_diff(up(flat_start), up(flat_end), g_pad)
+    all_reduce_sum(mesh, diff)
+    cov_block = cov_ops.prefix_sum_i32(diff)[g * block:(g + 1) * block]
+    cov = all_gather(mesh, cov_block, "gp")[:g_total].cpu().numpy()
+
+    okm = up(np.asarray(ok, bool))
+    cnts = all_gather(mesh, okm.sum().reshape(1)).cpu().numpy()
+    offset = int(cnts[:dist.get_rank()].sum())
+    take = cov_ops.first_n_take(okm, offset, read_pair_used)
+    hist = cov_ops.insert_histogram(up(isize_c), take, HIST_SIZE)
+    all_reduce_sum(mesh, hist)
+    n_over = (take & up(np.asarray(over_c, bool))).sum()
+    n_over = int(all_reduce_sum(mesh, n_over.reshape(1))[0])
+    hist = hist.cpu().numpy().astype(np.int64)
+    extra = np.zeros(0, np.int64)
+    if n_over:
+        # the spilled records were clamped into the top bin; gather their
+        # exact values, in rank order, under the same global first-N mask
+        mine = np.asarray(local_recs.isize, np.int64)[
+            take.cpu().numpy() & np.asarray(over_c, bool)]
+        extra = np.concatenate(process_allgather_ragged(mesh, mine))
+        if len(extra) != n_over:
+            raise AssertionError(f"{n_over} spilled insert sizes on the "
+                                 f"mesh, {len(extra)} gathered")
+        hist[HIST_SIZE - 1] -= len(extra)
+    mean, dev_ = _insert_stats_from_hist(hist, extra)
+    cov_by_tid = {t: cov[offsets[t]:offsets[t + 1]]
+                  for t in range(len(local_recs.ref_names))}
     return cov_by_tid, mean, dev_
 
 

@@ -30,6 +30,7 @@ from seeksv_tpu_torch.parallel.mesh import make_mesh, mesh_shape
 from seeksv_tpu_torch.parallel.spmd_pipeline import (spmd_coverage_insert,
                                                      spmd_run_pipeline)
 from seeksv_tpu_torch.utils.dataset import build_dataset
+from torch_inputs import run_gloo_ranks
 from torch_spmd_worker import plant_spill
 
 # several test workers share few cores: one intra-op thread each
@@ -49,30 +50,11 @@ def same_outputs(a, b):
 
 
 def run_ranks(tmp, world, ref_fa, bam, tasks, timeout=240):
-    """Run tests/torch_spmd_worker.py as `world` gloo ranks joined through
-    a FileStore under tmp; kill them all if any is not done in
-    `timeout` s (a hung collective fails the test, not the suite)."""
-    env = dict(os.environ, OMP_NUM_THREADS="1", HOME=str(tmp),
-               PYTHONPATH=os.pathsep.join(
-                   [REPO] + [p for p in os.environ.get(
-                       "PYTHONPATH", "").split(os.pathsep) if p]))
-    store = str(tmp / "store")
-    procs = [subprocess.Popen(
-        [sys.executable, WORKER, str(r), str(world), store, str(tmp),
-         ref_fa, bam, *tasks], cwd=str(tmp), env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
+    """Run tests/torch_spmd_worker.py as `world` gloo ranks writing under
+    tmp (torch_inputs.run_gloo_ranks: a hung collective fails the test,
+    not the suite)."""
+    run_gloo_ranks(WORKER, tmp, world, [str(tmp), ref_fa, bam, *tasks],
+                   timeout)
 
 
 @pytest.fixture(scope="module")

@@ -366,3 +366,147 @@ def bucket_table(key_bits, seed=0):
     reads.append(np.full(30, 4, np.uint8))
     reads.append(np.full(k - 1, 1, np.uint8))         # shorter than k
     return k, keys, tab, positions, ref_span, reads
+
+
+# ---- the multi-process pipeline: datasets and gloo ranks
+
+def single_chrom_dataset(root, with_equal_boundary: bool):
+    """tests/test_multihost.py:78-112 with the port's simulator: a 240 kb
+    single-chromosome genome with two deletions; with_equal_boundary adds
+    two deletions with identical junction contexts either side of the
+    2-rank flat cut (G/2 = 120 kb), which the sequential co-iteration
+    merges into one group and the range sharding must exchange across the
+    seam.  Returns (bam, ref_fa)."""
+    from seeksv_tpu_torch.io.bai import build_index
+    from seeksv_tpu_torch.utils.simulate import (build_donor, random_genome,
+                                                 simulate_reads, write_fasta)
+    rng = np.random.default_rng(3)
+    G = 240_000
+    g = random_genome(rng, G)
+    dels = [(30_000, 30_400), (200_000, 200_500)]
+    cov, seed = 30, 5
+    if with_equal_boundary:
+        startA, endA = 117_000, 117_400
+        startB, endB = 123_000, 123_400
+        g[endB:endB + 300] = g[endA:endA + 300]
+        g[startB - 300:startB] = g[startA - 300:startA]
+        dels += [(startA, endA), (startB, endB)]
+        cov, seed = 120, 0
+    ref = {"chr1": g}
+    donor = build_donor(ref, deletions=sorted(dels))
+    bam = str(root / "sim.bam")
+    fa = str(root / "ref.fa")
+    simulate_reads(donor, ["chr1"], [G], bam, coverage=cov, seed=seed,
+                   error_rate=0.0)
+    build_index(bam)
+    write_fasta(fa, ref)
+    return bam, fa
+
+
+def tumor_normal_dataset(root, contigs: int = 1, unread_contig: int = 0):
+    """tests/test_multihost.py:115-143 with the port's simulator: a 240 kb
+    genome with two germline deletions (one with its breakends 10-400 bp
+    below the 2-rank flat cut, G/2 = 120 kb) and two somatic-only ones;
+    cancer and normal BAMs at 30x.  contigs=2 writes the same genome as
+    two contigs of 120 kb (chr1, chr2; the donor runs from chr1's end
+    straight into chr2's start, in both samples), so the last somatic
+    deletion lies on chr2.  unread_contig: the length of one more contig,
+    chrU, that the header and the FASTA hold and no read covers.  Returns
+    (cancer_bam, normal_bam, ref_fa)."""
+    from seeksv_tpu_torch.io.bai import build_index
+    from seeksv_tpu_torch.utils.simulate import (Donor, build_donor,
+                                                 random_genome,
+                                                 simulate_reads, write_fasta)
+    rng = np.random.default_rng(11)
+    G = 240_000
+    g = random_genome(rng, G)
+    germline = [(40_000, 40_400), (119_600, 119_990)]
+    somatic_only = [(80_000, 80_500), (170_000, 170_350)]
+    cut = G // contigs
+    read = {f"chr{c + 1}": g[c * cut:(c + 1) * cut] for c in range(contigs)}
+    ref = dict(read)
+    if unread_contig:
+        ref["chrU"] = random_genome(rng, unread_contig)
+    fa = str(root / "ref.fa")
+    write_fasta(fa, ref)
+
+    def donor(dels):
+        parts = [build_donor(ref, chrom=name, deletions=[
+            (s - c * cut, e - c * cut) for s, e in sorted(dels)
+            if c * cut <= s < (c + 1) * cut])
+            for c, name in enumerate(read)]
+        seq = np.concatenate([p.seq for p in parts])
+        lens = np.concatenate([np.diff(p.seg_bounds) for p in parts])
+        return Donor([s for p in parts for s in p.segments], seq,
+                     np.concatenate([[0], np.cumsum(lens)]),
+                     [t for p in parts for t in p.truth])
+    out = []
+    for name, dels, seed in (("cancer", germline + somatic_only, 7),
+                             ("normal", germline, 8)):
+        bam = str(root / f"{name}.bam")
+        simulate_reads(donor(dels), list(ref),
+                       [len(x) for x in ref.values()], bam, coverage=30,
+                       seed=seed, error_rate=0.0)
+        build_index(bam)
+        out.append(bam)
+    return out[0], out[1], fa
+
+
+def run_gloo_ranks(worker, tmp, world, args, timeout=240):
+    """Run `worker` RANK WORLD STORE *args as `world` gloo ranks joined
+    through a FileStore under tmp; kill them all if any is not done in
+    `timeout` s (a hung collective fails the test, not the suite).
+    Returns each rank's output."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", HOME=str(tmp),
+               PYTHONPATH=os.pathsep.join(
+                   [repo] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    store = str(tmp / f"store{world}")
+    if os.path.exists(store):
+        os.remove(store)
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(r), str(world), store, *args],
+        cwd=str(tmp), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
+    return logs
+
+
+# ---- the evidence step
+
+def evidence_batch_numpy(genome_len, n_reads, n_jobs, lq, lt, seed):
+    """The unsharded batch of make_example_batch (seeksv_tpu/parallel/
+    sharded.py:118-137) for n_reads and n_jobs that every mesh of the test
+    divides: the same draws from np.random.default_rng(seed) in the same
+    order."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, max(genome_len - 100, 1), n_reads).astype(
+        np.int32)
+    return {
+        "seg_start": starts,
+        "seg_end": (starts + rng.integers(50, 100, n_reads)).astype(np.int32),
+        "seg_weight": np.ones(n_reads, np.int32),
+        "isize": rng.integers(400, 600, n_reads).astype(np.int32),
+        "isize_ok": np.ones(n_reads, bool),
+        "q": rng.integers(0, 4, (n_jobs, lq)).astype(np.int32),
+        "qlen": np.full(n_jobs, lq, np.int32),
+        "t": rng.integers(0, 4, (n_jobs, lt)).astype(np.int32),
+        "tlen": np.full(n_jobs, lt, np.int32),
+        "h0": np.full(n_jobs, 19, np.int32),
+        "cand_key": rng.integers(0, 1 << 20, n_reads).astype(np.int64),
+        "cand_support": np.ones(n_reads, np.int32),
+    }
