@@ -44,11 +44,12 @@ Phases (each prints its lines; any failure exits non-zero):
    - the walk (K3) beside its bound and its sector floor (one 32-byte
      sector per row a walk visits, over the memory rate), and on walks
      built to leave its windows (tests/torch_inputs.py:adversarial_walks);
-   With ``--parent DIR`` (another checkout) that checkout's traceback.cu
-   and seed_lookup.cu are built apart (one nvcc each, started together)
-   and timed in turns with this one's on the same inputs (parent, this,
-   this, parent); where the two sources differ, this one's must be the
-   faster;
+   With ``--parent DIR`` (another checkout) that checkout's traceback.cu,
+   seed_lookup.cu and discordant_count.cu are built apart (one nvcc
+   each, started together) and timed in turns with this one's on the
+   same inputs (parent, this, this, parent); where the two sources
+   differ, this one's must be the faster (K6: _count's work past the
+   record uploads, the junctions' uploads and the wrapper included);
 3. the slice: the repo's virus-integration flagship dataset (40 Mb host
    + 12 Mb virus panel, 25x, 1 kb reads, insert mean 3000, 6,000
    integrations at 4 % divergence, error rate 0.002, seed 1) through
@@ -82,7 +83,22 @@ Phases (each prints its lines; any failure exits non-zero):
    of the SPMD run's first consensus call (plus 64 groups of random reads
    that overflow max_slots = 8; K5 timed as its launch alone, as the call
    the pipeline makes and with the sides' gathers, each beside a bound
-   counted from the bytes it needs) and its discordant call.  On the same
+   counted from the bytes it needs) and its discordant call (K6 also on
+   its edge cases, tests/torch_inputs.py:discordant_edge_cases; timed as
+   its launch alone, warm and cold, the wrapper's call, cold (its ``ms``)
+   and warm, and _count's work past the record uploads and from host
+   columns, beside a bound from the distinct records the windows read at
+   the rate of device memory and one counting each record once a window,
+   with torch.profiler tables; with ``--parent``, the parent's kernel
+   and _count's work as the parent made it, in turns).  Before the SPMD runs, ``aln -2``
+   (align_paired_fastq_to_sam) on the flagship's reference with the
+   default run's unmapped_{1,2}.fq.gz and the BAM's first 2,000 proper
+   pairs, through K1 both ways, K2 and K3, both ends' dispatch choosing
+   the device under the committed crossover, its SAM byte-identical to
+   force_host's; then ``run --rescue --profile DIR`` through the port's
+   cli.main (the dispatch calibration must not be stale on the card),
+   its outputs byte-identical to a force_host run with rescue and its
+   torch.profiler trace naming the port's kernels.  On the same
    one-rank mesh, the distributed half (``parallel.multiproc``,
    ``parallel.sharded``; two ranks cannot share one card under NCCL, so
    the range cuts, the boundary exchange and the clip halo do not fire
@@ -216,13 +232,13 @@ def _nbytes(*tensors):
 # apart and called through their own C entry points.  "differs" says
 # which of the two sources is not this checkout's.
 PARENT = {"lib": None, "differs": {}}
-PARENT_SOURCES = ("traceback.cu", "seed_lookup.cu")
+PARENT_SOURCES = ("traceback.cu", "seed_lookup.cu", "discordant_count.cu")
 
 
 def build_parent(parent):
-    """Build <parent>/seeksv_tpu_torch/csrc/{traceback,seed_lookup}.cu (one
-    nvcc each, started together) into a library of its own and keep its
-    handle in PARENT."""
+    """Build <parent>/seeksv_tpu_torch/csrc/{traceback,seed_lookup,
+    discordant_count}.cu (one nvcc each, started together) into a library
+    of its own and keep its handle in PARENT."""
     from seeksv_tpu_torch import _build
     out = os.path.join(HERE, "build", "chip_smoke_parent")
     os.makedirs(out, exist_ok=True)
@@ -251,6 +267,11 @@ def build_parent(parent):
     # shift, max_occ, lo, cnt, stream
     lib.seeksv_seed_lookup.argtypes = [P, P, I, I, I, P, LL, I, P, LL, I, I,
                                        P, P, P]
+    # the column K6: pos, end, lq, mpos, mtid, fwd, mfwd, base_ok, R, lo, hi,
+    # beg, up_pos, down_pos, down_tid, same_tid, case_code, min_ins,
+    # max_ins, J, window_cap, out, stream
+    lib.seeksv_discordant_count.argtypes = [P] * 8 + [LL] + [P] * 10 + [
+        I, LL, P, P]
     PARENT["lib"] = lib
     _say(f"parent kernels: {os.path.relpath(parent, HERE)} built in "
          f"{time.perf_counter() - t0:.1f} s; differs from this checkout: "
@@ -1330,35 +1351,213 @@ def check_consensus_scan(kept, rows):
         "with_sides_bound_ms": sides_bound[0]}
 
 
+def _profile_table(name, fn, top=6):
+    """A torch.profiler table (CPU and CUDA activity) of ten calls of fn
+    (the second of two sessions: a first one can miss the device rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _session in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    _say(f"{name}: torch.profiler, ten calls:")
+    for line in prof.key_averages().table(
+            sort_by="self_cuda_time_total", row_limit=top).splitlines():
+        _say(f"  {line}")
+
+
+def _cold_ms(fn, reps):
+    """Mean milliseconds of fn by CUDA events around each call alone, 256 MB
+    read before each (outside the timed span, and still running when the
+    call is queued), so that none of its inputs sits in the card's 50 MB
+    L2 and no dirty line waits there to be written back."""
+    import torch
+    flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        flush.max()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def check_discordant_count(kept, rows):
-    """K6 against its plain version on the SPMD run's first discordant
-    call (padding rows are empty windows)."""
+    """K6 against its plain version on the SPMD run's discordant call
+    (padding rows are empty windows) and on the edge cases of
+    tests/torch_inputs.py:discordant_edge_cases, exactly; timed as its
+    launch alone (warm, and cold: L2 flushed before each), the wrapper's
+    call (its `ms` the cold call, held against the bound by device
+    memory), _count's work past the record uploads
+    (parallel/spmd_pipeline.py:_count_uploaded: the junctions packed on the
+    host and uploaded, the count) and _count's whole work from host
+    columns, beside two bounds (each record once per window that holds
+    it, and each distinct record once); torch.profiler tables; with
+    --parent, the parent's kernel on the same windows in turns with this
+    one: its launch, and _count's work as the parent made it (ten
+    junction uploads, 18 checks, the launch; the whole of it with the
+    eight record uploads), where _count's work past the record uploads
+    must be the faster."""
     import torch
 
+    from seeksv_tpu_torch import _build
     from seeksv_tpu_torch.ops import discordant as dc
+    from seeksv_tpu_torch.ops.extend import _check
+    from seeksv_tpu_torch.parallel import spmd_pipeline as sp
+    from torch_inputs import (discordant_args, discordant_edge_cases,
+                              discordant_packed)
     args, kw = kept
-    J = args[8].shape[0]
-    empty = int((args[9] <= args[8]).sum())
-    got = dc.discordant_count_batch(*args, **kw)
-    want = dc.discordant_count_plain(*args, **kw)
+    recs, jun = args[:8], args[8]
+    cap = kw["window_cap"]
+    dev = jun.device
+    R, J = recs[0].shape[0], jun.shape[1]
+    juns = dc.unpack_junctions(jun)
+    got = dc.discordant_count_batch(*recs, jun, window_cap=cap)
+    want = dc.discordant_count_plain(*recs, *juns, window_cap=cap)
     torch.cuda.synchronize()
     err = _max_abs_err([(got, want)])
-    ms = _cuda_ms(lambda: dc.discordant_count_batch(*args, **kw), 3)
-    plain_ms = _cuda_ms(lambda: dc.discordant_count_plain(*args, **kw), 1)
+    edges = []
+    for name, r, j, wc in discordant_edge_cases():
+        ra, ja = ([torch.from_numpy(x).to(dev) for x in a]
+                  for a in discordant_args(r, j))
+        e_got = dc.discordant_count_batch(*discordant_packed(r, j, dev),
+                                          window_cap=wc)
+        e_want = dc.discordant_count_plain(*ra, *ja, window_cap=wc)
+        torch.cuda.synchronize()
+        edges.append((name, _max_abs_err([(e_got, e_want)]),
+                      int(e_want.sum())))
+    _say(f"discordant_count edge cases (name, max_abs_err, pairs): "
+         f"{json.dumps(edges)}")
+    lib = _build.lib()
+    out = torch.empty(J, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rec_ptrs = [x.data_ptr() for x in recs]
+    launch = lambda: lib.seeksv_discordant_count(
+        *rec_ptrs, R, jun.data_ptr(), J, cap, out.data_ptr(), stream)
+    call = lambda: dc.discordant_count_batch(*recs, jun, window_cap=cap)
+    # _count's inputs: the run's columns on the host, and uploaded
+    rec_np = {k: x.cpu().numpy() for (k, _), x in zip(dc.REC_COLS, recs)}
+    jun_np = {k: x.cpu().numpy() for (k, _), x in zip(dc.JUN_COLS, juns)}
+    min_ins, max_ins = int(jun_np.pop("min_ins")[0]), \
+        int(jun_np.pop("max_ins")[0])
+    uploaded = lambda: sp._count_uploaded(list(recs), jun_np, min_ins,
+                                          max_ins, cap)
+    whole = lambda: sp._count(dev, rec_np, jun_np, min_ins, max_ins, cap)
+    for fn in (uploaded, whole):
+        o = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(o, want):
+            raise AssertionError("_count disagrees with the plain version")
+    launch_ms = _cuda_ms(launch, 20)
+    launch_cold_ms = _cold_ms(launch, 10)
+    warm_ms = _cuda_ms(call, 20)
+    ms = _cold_ms(call, 10)
+    uploaded_ms = _cuda_ms(uploaded, 50)
+    whole_ms = _cuda_ms(whole, 5)
+    plain_ms = _cuda_ms(lambda: dc.discordant_count_plain(
+        *recs, *juns, window_cap=cap), 1)
+    parent = {}
+    if PARENT["lib"]:
+        # the parent's kernel on the same columns, and _count's work as the
+        # parent made it: each junction column uploaded (and, for the
+        # whole, each record column), 18 columns checked, 23 arguments
+        pout = torch.empty(J, dtype=torch.int32, device=dev)
+        ptrs = rec_ptrs + [R] + [x.data_ptr() for x in juns] + \
+            [J, cap, pout.data_ptr()]
+        p_launch = lambda: _parent_call("seeksv_discordant_count", *ptrs)
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        def p_count(rec_cols):
+            cols = {**jun_np, "min_ins": np.full(J, min_ins, np.int64),
+                    "max_ins": np.full(J, max_ins, np.int64)}
+            jc = [put(cols[k]) for k, _ in dc.JUN_COLS]
+            for (nm, dt), x in zip(dc.REC_COLS, rec_cols):
+                _check(nm, x, dt, (R,), dev)
+            for (nm, dt), x in zip(dc.JUN_COLS, jc):
+                _check(nm, x, dt, (J,), dev)
+            o = torch.empty(J, dtype=torch.int32, device=dev)
+            _parent_call("seeksv_discordant_count",
+                         *(x.data_ptr() for x in rec_cols), R,
+                         *(x.data_ptr() for x in jc), J, cap, o.data_ptr())
+            return o
+        p_uploaded = lambda: p_count(recs)
+        p_whole = lambda: p_count([put(rec_np[k]) for k, _ in dc.REC_COLS])
+        p_launch()
+        for o in (pout, p_uploaded(), p_whole()):
+            torch.cuda.synchronize()
+            if not torch.equal(o, want):
+                raise AssertionError("the parent's discordant_count "
+                                     "disagrees")
+        this_l, par_l = _in_turns("discordant_count launch alone", p_launch,
+                                  launch, reps=20)
+        cold = [_cold_ms(f, 10) for f in (p_launch, launch, launch,
+                                          p_launch)]
+        _say(f"discordant_count launch alone, cold, in turns: parent "
+             f"{cold[0]:.4f} ms, this {cold[1]:.4f}, this {cold[2]:.4f}, "
+             f"parent {cold[3]:.4f}")
+        this_u, par_u = _in_turns("discordant_count _count past the record "
+                                  "uploads", p_uploaded, uploaded, reps=50)
+        this_w, par_w = _in_turns("discordant_count _count from host "
+                                  "columns", p_whole, whole, reps=5)
+        _beats_parent("discordant_count _count past the record uploads",
+                      "discordant_count.cu", this_u, par_u)
+        parent = {"parent_launch_ms": par_l, "launch_ms_in_turns": this_l,
+                  "parent_launch_cold_ms": [cold[0], cold[3]],
+                  "launch_cold_ms_in_turns": cold[1:3],
+                  "parent_count_uploaded_ms": par_u,
+                  "count_uploaded_ms_in_turns": this_u,
+                  "parent_count_whole_ms": par_w,
+                  "count_whole_ms_in_turns": this_w}
+    _profile_table("discordant_count call", call)
+    _profile_table("_count past the record uploads", uploaded)
+    # the bounds: 30 operations a record a window visits; bytes at the
+    # rate of device memory (what a cold call reads), the junctions and
+    # the counts, and either each record's eight columns once per window
+    # that holds it, or what this run's data needs: each distinct record's
+    # head (base_ok, end, mtid) once, and its other five columns once
+    # where its head passes in some window
+    junh = jun.cpu().numpy()
+    _first, _last, live = dc.window_ranges(junh, R, cap)
+    in_windows = int(np.where(live, np.minimum(junh[1] - junh[0], cap),
+                              0).sum())
+    distinct = dc.distinct_records(junh, R, cap)
+    g = jun[0][:, None] + torch.arange(cap, device=dev)[None, :]
+    gi = g.clamp(0, max(R - 1, 0))
+    head = ((g < jun[1][:, None]) & (((jun[7] >> 32) & 3) != 3)[:, None]
+            & recs[7][gi] & (recs[1][gi] > jun[2][:, None])
+            & (recs[4][gi] == juns[5][:, None]))
+    tails = int(torch.unique(gi[head]).numel())
+    size = [x.element_size() for x in recs]
+    head_bytes = size[7] + size[1] + size[4]
+    other = _nbytes(jun) + _nbytes(got)
+    bound_visits = _bound(in_windows * 30, in_windows * sum(size) + other)
+    bound = _bound(in_windows * 30, distinct * head_bytes
+                   + tails * (sum(size) - head_bytes) + other)
+    empty = int((jun[1] <= jun[0]).sum())
     shape = (f"the SPMD run's call J={J} ({empty} empty windows) over "
-             f"R={args[0].shape[0]} records, window_cap={kw['window_cap']}")
-    # the records of these windows (every record column once per window
-    # that holds it), the junction columns and the counts; 30 operations
-    # a record in a window
-    in_windows = int((args[9] - args[8]).clamp(min=0).sum())
-    rec_bytes = sum(a.element_size() for a in args[:8])
-    bound = _bound(in_windows * 30, in_windows * rec_bytes
-                   + _nbytes(*args[8:]) + _nbytes(got))
+             f"R={R} records, window_cap={cap}")
     _say(f"discordant_count: {shape}: {int(want.sum())} pairs, "
-         f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-         f"bound {bound[0]:.4g} ms by {bound[1]} ({in_windows} records in "
-         f"windows)")
-    if err or not int(want.sum()):
+         f"max_abs_err={err}; launch alone {launch_ms:.4f} ms warm, "
+         f"{launch_cold_ms:.4f} cold; the call {warm_ms:.4f} warm, "
+         f"{ms:.4f} cold; _count past the record uploads (the junctions "
+         f"packed on the host and uploaded, the count) {uploaded_ms:.4f} "
+         f"ms, _count from host columns {whole_ms:.4f} ms; plain "
+         f"{plain_ms:.3f} ms; bound {bound[0]:.4g} ms by {bound[1]} "
+         f"({distinct} distinct records in the windows, {head_bytes} "
+         f"bytes each, {tails} of them passing a head test, "
+         f"{sum(size) - head_bytes} bytes more each, at the rate of "
+         f"device memory), bound counting each record's {sum(size)} bytes "
+         f"once a window {bound_visits[0]:.4g} ms by {bound_visits[1]} "
+         f"({in_windows} records in windows)")
+    if err or not int(want.sum()) or any(e for _n, e, _c in edges):
         raise AssertionError("discordant_count disagrees with its plain "
                              "version or counts nothing")
     rows["discordant_count"] = {
@@ -1367,7 +1566,15 @@ def check_discordant_count(kept, rows):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
         "library_why": NO_LIBRARY["discordant_count"],
-        "ms_of": f"one launch, {shape}"}
+        "ms_of": f"one cold call of the wrapper (256 MB read before "
+                 f"each, so the records come from device memory, as the "
+                 f"bound assumes), {shape}",
+        "warm_ms": warm_ms, "launch_ms": launch_ms,
+        "launch_cold_ms": launch_cold_ms,
+        "count_uploaded_ms": uploaded_ms, "count_whole_ms": whole_ms,
+        "bound_visits_ms": bound_visits[0],
+        "distinct_records": distinct, "head_passing_records": tails,
+        "records_in_windows": in_windows, "edge_cases": edges, **parent}
 
 
 # the kernels each run of the slice must launch (and no others)
@@ -1387,6 +1594,9 @@ EXPECTED = {
     "multiproc_somatic_range": (),
     "multiproc_somatic": (),
     "evidence": ("extend_windows",),
+    "aln_paired": ("extend_left", "extend_right", "banded_dir", "traceback"),
+    "cli_rescue_profile": ("extend_left", "extend_right", "banded_dir",
+                           "traceback"),
 }
 # the runs that write the pipeline's outputs, each compared with
 # force_host's; the multi-process run's clip files are its rank 0's
@@ -1606,6 +1816,133 @@ def run_evidence(mesh, rows, drive, genome_len=52_000_000,
         "bound_by": bound[1]}
 
 
+def _revcomp(seq: bytes) -> bytes:
+    return seq.translate(bytes.maketrans(b"ACGTN", b"TGCAN"))[::-1]
+
+
+def write_pairs(bam, unmapped_prefix, out_prefix, n_pairs=2000):
+    """FASTQ pairs for ``aln -2``: the default run's unmapped_{1,2}.fq.gz
+    (the virus-mode reads the reference leaves to bwa), then the first
+    n_pairs proper pairs of the BAM in file order, each end in its read's
+    own orientation.  Returns (r1 path, r2 path, pairs from the unmapped
+    files, proper pairs)."""
+    from seeksv_tpu_torch.io.bam import read_bam
+    recs = read_bam(bam)
+    flag = np.asarray(recs.flag)
+    ends = {}
+    pairs = []
+    for i in np.nonzero(((flag & 0x2) != 0) & ((flag & 0x900) == 0))[0]:
+        i = int(i)
+        name = recs.qnames[i]
+        seq = recs.seq_bytes(i)
+        qual = recs.qual_str(i)
+        if flag[i] & 0x10:
+            seq, qual = _revcomp(seq), qual[::-1]
+        ends.setdefault(name, {})[1 if flag[i] & 0x40 else 2] = (seq, qual)
+        if len(ends[name]) == 2:
+            pairs.append((name, ends.pop(name)))
+            if len(pairs) == n_pairs:
+                break
+    paths, n_unmapped = [], 0
+    for end in (1, 2):
+        path = f"{out_prefix}_{end}.fq.gz"
+        with gzip.open(f"{unmapped_prefix}.unmapped_{end}.fq.gz", "rb") as f:
+            head = f.read()
+        n_unmapped = head.count(b"\n") // 4
+        with gzip.open(path, "wb") as f:
+            f.write(head)
+            for name, e in pairs:
+                seq, qual = e[end]
+                f.write(b"@%s/%d\n%s\n+\n%s\n" % (name, end, seq, qual))
+        paths.append(path)
+    return paths[0], paths[1], n_unmapped, len(pairs)
+
+
+def run_aln_paired(dev, ref, bam, out, index, drive):
+    """``aln -2`` on the card (align_paired_fastq_to_sam through
+    BatchAligner.batch_align: K1 both ways, K2, K3) on the flagship's
+    reference with pairs from the flagship BAM; both ends' dispatch must
+    choose the device under the committed crossover, and the SAM must be
+    byte-identical to force_host's."""
+    from seeksv_tpu_torch.align.engine import align_paired_fastq_to_sam
+    fq1, fq2, n_un, n_proper = write_pairs(
+        bam, os.path.join(out, "device"), os.path.join(out, "pairs"))
+    sam = os.path.join(out, "aln.sam")
+    res = drive("aln_paired", lambda: align_paired_fastq_to_sam(
+        ref, fq1, fq2, sam, device=dev, index=index))
+    for d in res["dispatch"]:
+        if not d or not d["chose_device"] or not d["crossover_applied"]:
+            raise AssertionError(f"aln -2: an end did not choose the device "
+                                 f"under the crossover: {d}")
+    t0 = time.perf_counter()
+    host = align_paired_fastq_to_sam(ref, fq1, fq2,
+                                     os.path.join(out, "aln_host.sam"),
+                                     device=dev, force_host=True,
+                                     index=index)
+    host_s = time.perf_counter() - t0
+    with open(sam, "rb") as a, open(os.path.join(out, "aln_host.sam"),
+                                    "rb") as b:
+        got, want = a.read(), b.read()
+    if got != want:
+        raise AssertionError("aln -2's SAM differs from force_host's")
+    lines = [ln.split(b"\t") for ln in got.splitlines()
+             if not ln.startswith(b"@")]
+    proper = sum(1 for f in lines if int(f[1]) & 0x2)
+    mapped = sum(1 for f in lines if not int(f[1]) & 0x4)
+    st = {k: round(v, 3) for k, v in res["stages_s"].items()}
+    al = {k: round(v, 3) for k, v in res["aligner"].timings.items()}
+    _say(f"aln -2: {n_un} unmapped pairs + {n_proper} proper pairs of the "
+         f"flagship BAM: {len(lines)} records, {mapped} mapped, {proper} "
+         f"proper; stages_s {json.dumps(st)} aligner_s {json.dumps(al)}; "
+         f"dispatch {json.dumps(res['dispatch'])}; force_host "
+         f"{host_s:.3f} s (align {host['stages_s']['align']:.3f}); SAM "
+         f"byte-identical ({len(got)} bytes)")
+
+
+def run_cli_rescue_profile(dev, ref, bam, out, index, drive):
+    """``run --rescue --profile DIR`` through the port's cli.main on the
+    card (the dispatch calibration's fingerprint check included): its
+    outputs byte-identical to a force_host run with rescue=True, and its
+    trace naming the port's kernels."""
+    from seeksv_tpu_torch import cli
+    from seeksv_tpu_torch.align.engine import BatchAligner
+    from seeksv_tpu_torch.pipeline.driver import run_pipeline
+    stale = BatchAligner.calibration_stale()
+    cal = BatchAligner._load_calibration(BatchAligner._calibration_path())
+    _say(f"calibration: stale {stale!r}; crossover "
+         f"{BatchAligner._calibrated_min_device_cells()} cells, measured on "
+         f"{cal and cal.get('card')}; finalize crossover "
+         f"{BatchAligner._min_device_finalize_cells()} cells")
+    if stale is not None:
+        raise AssertionError(f"the committed dispatch calibration is stale "
+                             f"on this card: {stale}")
+    prof = os.path.join(out, "profile")
+    prefix = os.path.join(out, "cli")
+    drive("cli_rescue_profile", lambda: {"stages_s": {}, "out": cli.main(
+        ["run", "--rescue", "--profile", prof, "--device", str(dev), "-o",
+         prefix, ref, bam])})
+    run_pipeline(ref, bam, os.path.join(out, "host_rescue"), device=dev,
+                 force_host=True, rescue=True, index=index)
+    for suffix in ("clip.sam", "sv", "unmapped.clip.fq", "clip.gz"):
+        opener = gzip.open if suffix.endswith(".gz") else open
+        with opener(f"{prefix}.{suffix}", "rb") as a, \
+                opener(os.path.join(out, f"host_rescue.{suffix}"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"run --rescue --profile: {suffix} "
+                                     "differs from force_host's")
+    trace = os.path.join(prof, "cli.trace.json")
+    with open(trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernels = {k: sum(1 for n in names if k in n) for k in
+               ("extend_kernel", "banded_dir_kernel", "traceback_kernel")}
+    _say(f"run --rescue --profile: outputs byte-identical to force_host with "
+         f"rescue; trace {os.path.getsize(trace)} bytes, kernel names "
+         f"{json.dumps(kernels)}")
+    if not all(kernels.values()):
+        raise AssertionError(f"the trace lacks a kernel of the port: "
+                             f"{kernels}")
+
+
 def run_slice(dev, workdir, card, rows):
     from seeksv_tpu_torch.align.engine import TorchBatchAligner
     from seeksv_tpu_torch.pipeline.driver import run_pipeline
@@ -1617,8 +1954,9 @@ def run_slice(dev, workdir, card, rows):
                           virus_events=6_000, virus_div=0.04, log=_say)
     _say(f"slice: dataset ready in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    index = TorchBatchAligner.from_fasta(paths["ref_fa"], cache=False,
-                                         device=dev).idx
+    # the index cache (which the CLI run loads) under the workdir
+    os.environ["HOME"] = os.path.join(workdir, "home")
+    index = TorchBatchAligner.from_fasta(paths["ref_fa"], device=dev).idx
     _say(f"slice: k-mer index built in {time.perf_counter() - t0:.1f} s")
     out = os.path.join(workdir, "out")
     os.makedirs(out, exist_ok=True)
@@ -1669,11 +2007,15 @@ def run_slice(dev, workdir, card, rows):
     drive("stream_device_align", lambda: run_pipeline_streaming(
         ref, bam, os.path.join(out, "stream_device_align"), device=dev,
         index=index, device_align=True, chunk_records=400_000))
+    run_aln_paired(dev, ref, bam, out, index, drive)
+    run_cli_rescue_profile(dev, ref, bam, out, index, drive)
     run_spmd(dev, ref, bam, out, index, rows, drive)
     runs["force_host"] = run_pipeline(ref, bam, os.path.join(out, "host"),
                                       device=dev, force_host=True,
                                       index=index)
     for name, res in runs.items():
+        if not res["stages_s"]:
+            continue
         st = {k: round(v, 3) for k, v in res["stages_s"].items()}
         line = f"slice {name} on {card}: stages_s {json.dumps(st)}"
         if "aligner" in res:

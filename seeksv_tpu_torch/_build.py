@@ -70,11 +70,9 @@ _SIGNATURES = {
     # order, support, n_slots, slot_of, overflow, src_l, src_r, stream
     "seeksv_consensus_scan": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _LL,
                               _LL, _P, _P, _P, _P, _P, _P, _P, _P],
-    # pos, end, lq, mpos, mtid, fwd, mfwd, base_ok, R, lo, hi, beg, up_pos,
-    # down_pos, down_tid, same_tid, case_code, min_ins, max_ins, J,
-    # window_cap, out, stream
-    "seeksv_discordant_count": [_P] * 8 + [_LL] + [_P] * 10 + [_I, _LL, _P,
-                                                              _P],
+    # pos, end, lq, mpos, mtid, fwd, mfwd, base_ok, R, jun, J, window_cap,
+    # out, stream
+    "seeksv_discordant_count": [_P] * 8 + [_LL, _P, _I, _LL, _P, _P],
 }
 
 

@@ -34,15 +34,44 @@ steps on an explicit torch device:
   (``ops.extend.extend_batch``), results all-gathered.  Every rank must
   call ``batch_align`` with the same reads.
 
-Dispatch: no H100 crossover has been measured yet, so every extension
-batch and every eligible finalize job goes to the device (crossover 0,
-share 1.0); the reference's calibration files are not read.
-``force_host=True`` keeps both steps on the native host kernels, as in
-the reference.  A device failure raises.
+Dispatch on a CUDA device, as the reference's (engine.py:420-543,
+623-654, 827-871), from the port's own measurements on the H100: an
+extension batch whose actual DP cells are under the crossover of
+``align/dispatch_calibration.json`` (written by
+``python -m seeksv_tpu_torch.scripts.calibrate_dispatch``; its
+fingerprint is the card's name and the measured upload rate) runs on the
+native host kernel; the finalize sends all its eligible long-fragment
+jobs to the device when their banded cells pass the finalize crossover
+(``MIN_DEVICE_FINALIZE_CELLS``; measured on the flagship by
+``python -m seeksv_tpu_torch.scripts.calibrate_finalize``, which also
+found the card fastest with every job: the reference's share of 0.55
+has no counterpart).  Environment variables of the port's own names
+(``SEEKSV_TPU_TORCH_DISPATCH_CALIB``, ``..._CALIBRATE_TIMEOUT_S``,
+``..._FINALIZE_CROSSOVER_CELLS``) override them; the reference's files
+and variables are never read.  ``last_dispatch`` records what the rule saw
+and what it chose.  The one deliberate difference: on ``device="cpu"``
+no crossover applies and every batch and eligible job takes
+the kernels' plain versions, because that route exists for the tests,
+which must reach the device code on the CPU (the reference routes a
+CPU-only jax to its host kernels).  ``force_host=True`` keeps both steps
+on the native host kernels, ``force_device=True`` sends both to the
+device whatever the crossover, as in the reference.  A device failure
+raises.
+
+``align_fastq_to_sam`` (``aln``: one read a call of the host
+``Aligner.align``) and ``align_paired_fastq_to_sam`` (``aln -2``: both
+ends through ``BatchAligner.batch_align`` on a device, then the FR
+proper-pair model) write the reference's SAM bytes.
 """
 from __future__ import annotations
 
+import functools
+import gzip
+import json
 import math
+import os
+import subprocess
+import sys
 import threading
 import time
 from dataclasses import dataclass
@@ -381,11 +410,15 @@ class Aligner:
 
 
 
-# Dispatch constants until an H100 calibration exists: every batch and
-# every eligible finalize job goes to the device.
-MIN_DEVICE_CELLS = 0
-MIN_DEVICE_FINALIZE_CELLS = 0
-FINALIZE_DEVICE_SHARE = 1.0
+# The finalize crossover in estimated banded cells (phase A's two rungs),
+# measured on the flagship on an NVIDIA H100 80GB HBM3 at 700 W by
+# scripts/calibrate_finalize.py (its record:
+# align/finalize_calibration.json): the card beat the host ladder from 64
+# reads' jobs on, and took all of them fastest (0.62 s against 0.92 with
+# 0.65 of them, 1.14 with 0.55, 1.35 with 0.45, 1.58 on the host alone),
+# so the card takes every eligible job.
+MIN_DEVICE_FINALIZE_CELLS = 6_419_425
+_HERE = os.path.dirname(os.path.abspath(__file__))
 
 # one packed genome per (genome, device), shared by every aligner
 _PACKED_CACHE: Dict = {}
@@ -451,6 +484,116 @@ class BatchAligner(Aligner):
                 return b
         return ((n + 511) // 512) * 512
 
+    # -- the dispatch calibration (seeksv_tpu/align/engine.py:420-543) --
+
+    # the extension crossover in actual DP cells when no calibration file
+    # exists (the committed align/dispatch_calibration.json holds the
+    # measured value; this is the reference's fallback, engine.py:421)
+    MIN_DEVICE_CELLS = 50_000_000
+
+    @staticmethod
+    def _calibration_path() -> str:
+        return os.path.abspath(
+            os.environ.get("SEEKSV_TPU_TORCH_DISPATCH_CALIB")
+            or os.path.join(_HERE, "dispatch_calibration.json"))
+
+    @staticmethod
+    @functools.lru_cache(maxsize=4)
+    def _load_calibration(path: str):
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    @classmethod
+    def _calibrated_min_device_cells(cls) -> int:
+        cal = cls._load_calibration(cls._calibration_path())
+        v = cal.get("crossover_cells") if cal else None
+        return int(v) if v is not None else cls.MIN_DEVICE_CELLS
+
+    @classmethod
+    def calibration_stale(cls) -> Optional[str]:
+        """A reason when the dispatch calibration does not match the card
+        in use (another card, or an upload rate off by more than 4x),
+        else None; None without a CUDA device (the crossover gates the
+        card only)."""
+        cal = cls._load_calibration(cls._calibration_path())
+        if cal is None:
+            return "no calibration artifact"
+        fp = cal.get("fingerprint")
+        if not fp:
+            return "calibration has no fingerprint"
+        if not torch.cuda.is_available():
+            return None
+        dev = torch.cuda.get_device_name(torch.cuda.current_device())
+        if fp.get("platform") != "cuda":
+            return f"platform cuda != calibrated {fp.get('platform')}"
+        if fp.get("device") != dev:
+            return f"device {dev} != calibrated {fp.get('device')}"
+        want = fp.get("upload_probe_mb_s")
+        if want:
+            got = cls._upload_probe_mb_s()
+            if got > 4 * want or got < want / 4:
+                return (f"upload bandwidth {got:.1f} MB/s vs calibrated "
+                        f"{want:.1f} (>4x shift)")
+        return None
+
+    @staticmethod
+    def _upload_probe_mb_s(size_mb: int = 4) -> float:
+        """Host -> card upload rate of a pageable buffer, MB/s (best of
+        two, after a warm-up)."""
+        dev = torch.device("cuda", torch.cuda.current_device())
+        buf = torch.empty(size_mb << 20, dtype=torch.uint8)
+        buf[:1024].to(dev)
+        torch.cuda.synchronize(dev)
+        best = None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            buf.to(dev)
+            torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        return size_mb / best
+
+    @classmethod
+    def ensure_calibration(cls, auto: bool = True, log=print) -> bool:
+        """When the calibration is stale and auto is set, run the port's
+        ``python -m seeksv_tpu_torch.scripts.calibrate_dispatch --out
+        PATH`` in a subprocess (bounded by
+        SEEKSV_TPU_TORCH_CALIBRATE_TIMEOUT_S, 600 s) and reload; a timeout
+        or a failed run keeps the committed values.  True when a
+        recalibration ran."""
+        reason = cls.calibration_stale()
+        if reason is None:
+            return False
+        log(f"# dispatch calibration stale: {reason}")
+        if not auto:
+            return False
+        log("# re-running the dispatch calibration on this card...")
+        timeout_s = float(os.environ.get(
+            "SEEKSV_TPU_TORCH_CALIBRATE_TIMEOUT_S", "600"))
+        root = os.path.dirname(os.path.dirname(_HERE))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (root, env.get("PYTHONPATH")) if p)
+        cmd = [sys.executable, "-m",
+               "seeksv_tpu_torch.scripts.calibrate_dispatch", "--out",
+               cls._calibration_path()]
+        try:
+            proc = subprocess.run(cmd, timeout=timeout_s, env=env)
+        except subprocess.TimeoutExpired:
+            log(f"# calibration timed out after {timeout_s:.0f}s; keeping "
+                "the committed crossover values")
+            return False
+        if proc.returncode != 0:
+            log(f"# calibration exited rc={proc.returncode}; keeping the "
+                "committed crossover values")
+            return False
+        cls._load_calibration.cache_clear()
+        log(f"# new crossover: {cls._calibrated_min_device_cells()} cells")
+        return True
+
     def _device_seeder(self) -> TorchDeviceSeeder:
         if self._seeder is None:
             self._seeder = TorchDeviceSeeder.from_index(self.idx, self.device)
@@ -495,12 +638,10 @@ class BatchAligner(Aligner):
     def batch_align(self, seqs: List[bytes],
                     force_device: bool = False,
                     force_host: bool = False) -> List[Alignment]:
-        """Align every read.  force_device is accepted for
-        ``realign_clips``' signature; the
-        device is always chosen unless force_host is set (force_host moves
-        the extension and the finalize to the host; the device_seed and
-        device_align front-ends run on the device all the same, as in the
-        reference)."""
+        """Align every read.  force_host moves the extension and the
+        finalize to the host, force_device sends them to the device past
+        the crossovers (the device_seed and device_align front-ends run on
+        the device all the same, as in the reference)."""
         per_read_codes: List[Tuple[np.ndarray, np.ndarray]] = []
         strand_reads: List[np.ndarray] = []
         for seq in seqs:
@@ -527,7 +668,7 @@ class BatchAligner(Aligner):
                         (strand, final, final, tid, qb, qe, rb, rend))
         else:
             self._seed_and_extend(strand_reads, per_read_codes,
-                                  results_by_read, force_host)
+                                  results_by_read, force_device, force_host)
         t0 = time.perf_counter()
         out = self._finalize_many(per_read_codes, seqs, results_by_read,
                                   force_device=force_device,
@@ -536,7 +677,7 @@ class BatchAligner(Aligner):
         return out
 
     def _seed_and_extend(self, strand_reads, per_read_codes, results_by_read,
-                         force_host: bool) -> None:
+                         force_device: bool, force_host: bool) -> None:
         """Seeding (on the host, or on the device with device_seed), then
         both extension rounds (seeksv_tpu/align/engine.py:590-808)."""
         idx = self.idx
@@ -556,10 +697,10 @@ class BatchAligner(Aligner):
                 jobs.append((ri, strand, diag, q_start, anchor_len, tid))
         if jobs:
             self._extend_jobs(jobs, per_read_codes, results_by_read,
-                              force_host)
+                              force_device, force_host)
 
     def _extend_jobs(self, jobs, per_read_codes, results_by_read,
-                     force_host: bool) -> None:
+                     force_device: bool, force_host: bool) -> None:
         """Both extension rounds and the clip/extend decisions for every
         job (seeksv_tpu/align/engine.py:607-808 with the device branch on
         the resident torch path)."""
@@ -602,14 +743,20 @@ class BatchAligner(Aligner):
                          anchor_len, tid))
             est_cells += (q_start * (q_start + 100)
                           + len(rq_arr) * (len(rq_arr) + 100))
-        use_host = force_host   # crossover 0: every batch on the device
+        # the crossover gates the card (seeksv_tpu/align/engine.py:
+        # 623-654); the CPU route takes the plain versions for the tests
+        crossover = self._calibrated_min_device_cells()
+        on_card = self.device.type == "cuda"
+        use_host = force_host or (on_card and not force_device
+                                  and est_cells < crossover)
         self.last_dispatch = {
             "est_actual_cells": est_cells,
-            "crossover_cells": MIN_DEVICE_CELLS,
-            "finalize_crossover_cells": MIN_DEVICE_FINALIZE_CELLS,
-            "finalize_device_share": FINALIZE_DEVICE_SHARE,
+            "crossover_cells": crossover,
+            "crossover_applied": on_card,
+            "finalize_crossover_cells": self._min_device_finalize_cells(),
             "device": str(self.device),
-            "forced": "host" if force_host else None,
+            "forced": ("host" if force_host
+                       else ("device" if force_device else None)),
             "chose_device": not use_host,
             "n_jobs": n_jobs, "LQ": LQ, "LT": LT,
         }
@@ -738,15 +885,29 @@ class BatchAligner(Aligner):
         return self._parts_to_alignments(codes_pair, n,
                                          self._select_parts(results, n))
 
+    @staticmethod
+    def _min_device_finalize_cells() -> int:
+        v = os.environ.get("SEEKSV_TPU_TORCH_FINALIZE_CROSSOVER_CELLS")
+        return int(v) if v else MIN_DEVICE_FINALIZE_CELLS
+
     def _device_finalize_plan(self, qs, ts, force_device: bool):
-        """Every eligible long-fragment job goes to the device
-        (finalize crossover 0, share 1.0)."""
+        """(device aligner, the job rows it takes) or (None, []): the
+        eligible long-fragment jobs, on a CUDA device when their estimated
+        banded cells (phase A's two rungs, K = 128 + 256) pass the
+        finalize crossover (seeksv_tpu/align/engine.py:834-871), on the
+        CPU always (the tests' route)."""
         if self._dga is None:
             self._dga = TorchDeviceGlobalAligner(self.device)
         dga = self._dga
         elig = [x for x in range(len(qs))
                 if dga.eligible(len(qs[x]), len(ts[x]))]
-        return (dga, elig) if elig else (None, [])
+        if not elig:
+            return None, []
+        if self.device.type == "cuda" and not force_device:
+            est = sum(min(len(qs[x]), len(ts[x])) * 384 for x in elig)
+            if est < self._min_device_finalize_cells():
+                return None, []
+        return dga, elig
 
     def _finalize_many(self, per_read_codes, seqs, results_by_read,
                        force_device: bool = False,
@@ -855,3 +1016,200 @@ TorchBatchAligner = BatchAligner
 
 def _cigar_str(cigar) -> str:
     return "".join(f"{l}{o}" for l, o in cigar) if cigar else "*"
+
+
+def _read_named_fastq(path):
+    names, seqs, quals = [], [], []
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        while True:
+            h = f.readline()
+            if not h:
+                break
+            names.append(h[1:].split()[0].rstrip("\n"))
+            seqs.append(f.readline().strip().encode())
+            f.readline()
+            quals.append(f.readline().strip())
+    return names, seqs, quals
+
+
+def _ref_span_of(cigar) -> int:
+    return sum(ln for ln, op in cigar if op in ("M", "D"))
+
+
+def align_paired_fastq_to_sam(ref_fa: str, fq1: str, fq2: str, out_sam: str,
+                              min_seed_len: int = MIN_SEED_LEN,
+                              times: int = 4, device="cuda",
+                              force_host: bool = False,
+                              index: Optional[KmerIndex] = None) -> dict:
+    """Paired-end-aware realignment (the bwa-sampe/mem-PE role the
+    reference outsources for its unmapped_{1,2}.fq.gz virus-mode reads,
+    ref: README.md:79-81, clip_reads.h:172 pair collection).
+
+    Both ends are batch-aligned independently; an insert-size model is
+    then fit from FR-oriented both-mapped pairs (same estimator as the
+    reference's cluster.cpp:15: integer mean + truncated-int deviation)
+    and pairs within mean±times·dev in FR orientation are flagged
+    proper (0x2) — the concordance predicate of cluster.cpp:136-147.
+    Mate fields (RNEXT/PNEXT/TLEN) and pair flags are filled so the
+    output is a valid PE SAM consumable by getclip.
+
+    Both ends run through ``BatchAligner.batch_align`` on `device` (the
+    extension and finalize kernels on ``cuda``, their plain versions on
+    ``cpu``); force_host keeps both steps on the native host kernels.  On
+    a CUDA device the native host library must load (else this raises).
+    index: a prebuilt k-mer index of ref_fa (its k must be min_seed_len).
+    Returns {"stages_s": wall seconds per stage, "aligner": the
+    BatchAligner, "dispatch": each end's last_dispatch}."""
+    device = torch.device(device)
+    stages = {}
+    t0 = time.perf_counter()
+    from ..io import native
+    if device.type == "cuda" and not native.available():
+        raise RuntimeError(
+            "the native host library did not build or load; the CUDA path "
+            f"needs it: {native.LOAD_ERROR}")
+    stages["native"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    if index is None:
+        index = Aligner.from_fasta(ref_fa, k=min_seed_len).idx
+    aligner = BatchAligner(index, device=device)
+    stages["index"] = time.perf_counter() - t
+    t = time.perf_counter()
+    names1, seqs1, quals1 = _read_named_fastq(fq1)
+    names2, seqs2, quals2 = _read_named_fastq(fq2)
+    if len(seqs1) != len(seqs2):
+        raise ValueError(f"paired fastqs differ in length: "
+                         f"{len(seqs1)} vs {len(seqs2)}")
+    stages["read_fq"] = time.perf_counter() - t
+    dispatch = []   # each end's last_dispatch (None: no extension job)
+    t = time.perf_counter()
+    ends = []
+    for seqs in (seqs1, seqs2):
+        aligner.last_dispatch = None
+        ends.append(aligner.batch_align(seqs, force_host=force_host))
+        dispatch.append(aligner.last_dispatch)
+    a1, a2 = ends
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    stages["align"] = time.perf_counter() - t
+    t = time.perf_counter()
+
+    def pair_isize(x: Alignment, y: Alignment):
+        """FR insert size (fragment length) or None if not FR/same-tid."""
+        if not (x.mapped and y.mapped) or x.tid != y.tid:
+            return None
+        fwd, rev = (x, y) if x.strand == 0 else (y, x)
+        if fwd.strand != 0 or rev.strand != 1:
+            return None
+        end = rev.pos + _ref_span_of(rev.cigar)
+        isz = end - fwd.pos
+        return isz if isz > 0 and fwd.pos <= rev.pos else None
+
+    ins = [v for v in (pair_isize(x, y) for x, y in zip(a1, a2))
+           if v is not None]
+    if ins:
+        mean = int(sum(ins) // len(ins))
+        dev = int(math.sqrt(sum((v - mean) ** 2 for v in ins) / len(ins)))
+    else:
+        mean, dev = 0, 0
+    lo, hi = max(0, mean - times * dev), mean + times * dev
+
+    with open(out_sam, "w") as out:
+        out.write("@HD\tVN:1.5\tSO:unsorted\n")
+        for name, ln in zip(aligner.idx.chrom_names,
+                            np.diff(aligner.idx.chrom_starts)):
+            out.write(f"@SQ\tSN:{name}\tLN:{int(ln)}\n")
+        out.write("@PG\tID:seeksv-tpu-aln\tPN:seeksv-tpu\n")
+        for i in range(len(seqs1)):
+            x, y = a1[i], a2[i]
+            isz = pair_isize(x, y)
+            proper = isz is not None and lo <= isz <= hi and ins
+            for (qn, seq, qual, a, mate, first) in (
+                    (names1[i], seqs1[i], quals1[i], x, y, True),
+                    (names2[i], seqs2[i], quals2[i], y, x, False)):
+                flag = 0x1 | (0x40 if first else 0x80)
+                if proper:
+                    flag |= 0x2
+                if not a.mapped:
+                    flag |= 0x4
+                if not mate.mapped:
+                    flag |= 0x8
+                if a.mapped and a.strand:
+                    flag |= 0x10
+                if mate.mapped and mate.strand:
+                    flag |= 0x20
+                seq_s = seq.decode()
+                qual_s = qual
+                if a.mapped and a.strand:
+                    seq_s = bytes(
+                        _RC[np.frombuffer(seq, np.uint8)][::-1]).decode()
+                    qual_s = qual[::-1]
+                rname = aligner.idx.chrom_names[a.tid] if a.mapped else "*"
+                pos = a.pos + 1 if a.mapped else 0
+                if mate.mapped:
+                    rnext = ("=" if (a.mapped and mate.tid == a.tid)
+                             else aligner.idx.chrom_names[mate.tid])
+                    pnext = mate.pos + 1
+                else:
+                    rnext, pnext = "*", 0
+                tlen = 0
+                if isz is not None:
+                    fwd_first = a.mapped and a.strand == 0
+                    tlen = isz if fwd_first else -isz
+                mapq = a.mapq if a.mapped else 0
+                cig = _cigar_str(a.cigar) if a.mapped else "*"
+                tags = (f"\tNM:i:{a.nm}\tAS:i:{a.score}" if a.mapped else "")
+                out.write(f"{qn}\t{flag}\t{rname}\t{pos}\t{mapq}\t{cig}\t"
+                          f"{rnext}\t{pnext}\t{tlen}\t{seq_s}\t{qual_s}"
+                          f"{tags}\n")
+    stages["write_sam"] = time.perf_counter() - t
+    stages["total"] = time.perf_counter() - t0
+    return {"stages_s": stages, "aligner": aligner, "dispatch": dispatch}
+
+
+def align_fastq_to_sam(ref_fa: str, reads_fq: str, out_sam: str,
+                       min_seed_len: int = MIN_SEED_LEN) -> None:
+    """CLI entry: align a fastq(.gz) of clipped sequences, emit SAM in
+    input order (the order contract the getsv co-iteration relies on).
+    One read a call of the host Aligner.align, as in the reference."""
+    aligner = Aligner.from_fasta(ref_fa, k=min_seed_len)
+    opener = gzip.open if reads_fq.endswith(".gz") else open
+    with opener(reads_fq, "rt") as f, open(out_sam, "w") as out:
+        out.write("@HD\tVN:1.5\tSO:unsorted\n")
+        for name, ln in zip(aligner.idx.chrom_names,
+                            np.diff(aligner.idx.chrom_starts)):
+            out.write(f"@SQ\tSN:{name}\tLN:{int(ln)}\n")
+        out.write("@PG\tID:seeksv-tpu-aln\tPN:seeksv-tpu\n")
+        while True:
+            h = f.readline()
+            if not h:
+                break
+            seq = f.readline().strip()
+            f.readline()
+            qual = f.readline().strip()
+            qname = h[1:].split()[0]
+            a = aligner.align(seq.encode())
+            if not a.mapped:
+                out.write(f"{qname}\t4\t*\t0\t0\t*\t*\t0\t0\t{seq}\t{qual}\n")
+                continue
+            flag = 16 if a.strand else 0
+            oseq, oqual = seq, qual
+            if a.strand:
+                oseq = bytes(_RC[np.frombuffer(seq.encode(), np.uint8)][::-1]).decode()
+                oqual = qual[::-1]
+            out.write(f"{qname}\t{flag}\t{aligner.idx.chrom_names[a.tid]}\t"
+                      f"{a.pos + 1}\t{a.mapq}\t{_cigar_str(a.cigar)}\t*\t0\t0\t"
+                      f"{oseq}\t{oqual}\tNM:i:{a.nm}\tAS:i:{a.score}\n")
+            for s in (a.supp or []):
+                sseq, sq = oseq, oqual
+                if s.strand != a.strand:
+                    sseq = bytes(_RC[np.frombuffer(
+                        sseq.encode(), np.uint8)][::-1]).decode()
+                    sq = sq[::-1]
+                out.write(
+                    f"{qname}\t{2048 | (16 if s.strand else 0)}\t"
+                    f"{aligner.idx.chrom_names[s.tid]}\t{s.pos + 1}\t"
+                    f"{s.mapq}\t{_cigar_str(s.cigar)}\t*\t0\t0\t"
+                    f"{sseq[s.qb:s.qe]}\t{sq[s.qb:s.qe]}\t"
+                    f"NM:i:{s.nm}\tAS:i:{s.score}\n")

@@ -2,8 +2,12 @@
 
   python -m seeksv_tpu_torch run [-o prefix] [--device cuda] [--normal n.bam]
                                  [--device-seed] [--device-align]
+                                 [--device-align-auto] [--rescue]
+                                 [--profile DIR] [--no-auto-calibrate]
                                  [--stream [--chunk-records N]]
                                  <ref.fa> <in.bam>
+  python -m seeksv_tpu_torch aln      [-k N] [-2 mate2.fq] [--device cuda]
+                                      <ref.fa> <reads.fq.gz> <out.sam>
   python -m seeksv_tpu_torch getclip  [-t -q -s -o] <input.sorted.bam>
   python -m seeksv_tpu_torch getsv    [-F -B -t -l -q -Q -w -n -b -d -D -e -m
                                        -i -f -T -L -r -a -R --rescue]
@@ -14,10 +18,19 @@
   python -m seeksv_tpu_torch somatic-filter <somatic.temp.sv> <out.somatic.sv>
   python -m seeksv_tpu_torch vcf      <breakpoint.sv> [template.vcf] <out.vcf>
   python -m seeksv_tpu_torch index    <in.bam>
+  python -m seeksv_tpu_torch view     <in.bam> <chrom:beg-end>
+  python -m seeksv_tpu_torch cluster  [-n -q] <in.bam>
+  python -m seeksv_tpu_torch simulate [-G -c --dels --invs --seed -o]
+  python -m seeksv_tpu_torch compare  {simu,crest,seeksv} [-l -n -t -c --cnv]
+                                      <control> <target> <out>
 
-The host-only subcommands take the flags of ``seeksv_tpu/cli.py:20-112``
-and write the same bytes.  ``aln``, ``view``, ``cluster``, ``simulate``
-and ``compare`` are not ported yet.
+Every subcommand takes the flags of ``seeksv_tpu/cli.py`` and writes the
+same bytes; ``run`` and ``aln`` add ``--device`` (``cuda``, or ``cpu``
+for the kernels' plain versions).  ``aln -2`` runs both ends through the
+device aligner; single-end ``aln`` is the host aligner, as in the
+reference.  ``run`` on a CUDA device checks the dispatch calibration's
+fingerprint first (``--no-auto-calibrate`` skips the check) and with
+``--profile DIR`` writes a ``torch.profiler`` trace there.
 """
 from __future__ import annotations
 
@@ -115,6 +128,17 @@ def main(argv=None) -> int:
     pr.add_argument("--device-align", action="store_true",
                     help="full device front-end: seed + window gather + "
                          "extension on the device (ops.align_device)")
+    pr.add_argument("--device-align-auto", action="store_true",
+                    help="enable --device-align only where the committed "
+                         "calibration (align/device_align_calibration.json) "
+                         "measured a break-even")
+    pr.add_argument("--rescue", action="store_true")
+    pr.add_argument("--profile", default=None, dest="profile_dir",
+                    help="write a torch.profiler trace to this directory")
+    pr.add_argument("--no-auto-calibrate", action="store_true",
+                    help="skip the dispatch-calibration fingerprint check "
+                         "(a stale calibration otherwise re-measures the "
+                         "host/device crossover on first run)")
     pr.add_argument("--stream", action="store_true",
                     help="bounded-memory ingestion: decode each BAM once "
                          "in chunks (pipeline.stream)")
@@ -122,6 +146,18 @@ def main(argv=None) -> int:
                     help="records per decode slab with --stream")
     pr.add_argument("ref_fa")
     pr.add_argument("bam")
+    pa = sub.add_parser("aln", help="realign clipped sequences (in-framework)")
+    pa.add_argument("-k", type=int, default=19, dest="min_seed_len")
+    pa.add_argument("-2", "--mate2", default=None, dest="mate2",
+                    help="mate-2 fastq: paired-end mode (pair flags, mate "
+                         "fields, FR proper-pair model)")
+    pa.add_argument("--device", default="cuda",
+                    help="torch device of the paired mode's extension and "
+                         "finalize kernels [cuda]; cpu runs their plain "
+                         "versions (single-end aln is the host aligner)")
+    pa.add_argument("ref_fa")
+    pa.add_argument("reads_fq")
+    pa.add_argument("out_sam")
     _add_getclip(sub)
     _add_getsv(sub)
     _add_somatic(sub)
@@ -135,6 +171,37 @@ def main(argv=None) -> int:
     pv.add_argument("out_vcf")
     pi = sub.add_parser("index", help="build a .bai index (samtools-index role)")
     pi.add_argument("bam")
+    pw = sub.add_parser("view", help="records overlapping a region "
+                        "(BAI-indexed, samtools-view role)")
+    pw.add_argument("bam")
+    pw.add_argument("region", help="chrom:beg-end (1-based)")
+    pcl = sub.add_parser(
+        "cluster", help="insert-size model (the reference's disabled "
+                        "`cluster` subcommand, ref: seeksv.cpp:415-442)")
+    pcl.add_argument("-n", type=int, default=5_000_000, dest="read_pair_used")
+    pcl.add_argument("-q", type=int, default=20, dest="min_mapq")
+    pcl.add_argument("bam")
+    ps = sub.add_parser("simulate",
+                        help="generate a truth-bearing synthetic dataset")
+    ps.add_argument("-G", type=int, default=1_000_000, dest="genome_len")
+    ps.add_argument("-c", type=float, default=30.0, dest="coverage")
+    ps.add_argument("--dels", type=int, default=10)
+    ps.add_argument("--invs", type=int, default=2)
+    ps.add_argument("--seed", type=int, default=0)
+    ps.add_argument("-o", default="sim", dest="prefix")
+    pc = sub.add_parser("compare", help="compare SV result files")
+    pc.add_argument("mode", choices=["simu", "crest", "seeksv"])
+    pc.add_argument("-l", type=int, default=50, dest="fuzz")
+    pc.add_argument("-n", dest="n_region_file", default=None)
+    pc.add_argument("-t", action="store_true", dest="target_is_crest",
+                    help="target file is in CREST format")
+    pc.add_argument("-c", default="chr17", dest="chrom",
+                    help="chromosome for simu truth [chr17]")
+    pc.add_argument("--cnv", default=None, dest="cnv_file",
+                    help="simu-mode CNV truth file (lins/ldel)")
+    pc.add_argument("control")
+    pc.add_argument("target")
+    pc.add_argument("out_prefix")
     args = parser.parse_args(argv)
 
     if args.cmd == "getclip":
@@ -180,6 +247,19 @@ def main(argv=None) -> int:
         from .io.bai import build_index
         print(build_index(args.bam), file=sys.stderr)
     elif args.cmd == "run":
+        import torch
+        if (torch.device(args.device).type == "cuda"
+                and not args.no_auto_calibrate):
+            # a stale fingerprint (another card, another upload rate)
+            # re-measures the crossover on this card first
+            from .align.engine import BatchAligner
+            BatchAligner.ensure_calibration(
+                auto=True, log=lambda *a: print(*a, file=sys.stderr))
+        if args.device_align_auto:
+            from .ops.align_device import device_align_auto_enabled
+            args.device_align = device_align_auto_enabled()
+            print(f"# --device-align-auto -> {args.device_align} "
+                  "(align/device_align_calibration.json)", file=sys.stderr)
         kw = dict(device=args.device, normal_bam=args.normal,
                   device_seed=args.device_seed,
                   device_align=args.device_align,
@@ -191,10 +271,75 @@ def main(argv=None) -> int:
                                          **kw)
         else:
             from .pipeline.driver import run_pipeline
-            res = run_pipeline(args.ref_fa, args.bam, args.prefix, **kw)
+            res = run_pipeline(args.ref_fa, args.bam, args.prefix,
+                               rescue=args.rescue,
+                               profile_dir=args.profile_dir, **kw)
         print(json.dumps({"stages_s": res["stages_s"],
                           "aligner_s": res["aligner"].timings}),
               file=sys.stderr)
+    elif args.cmd == "aln":
+        if args.mate2:
+            from .align.engine import align_paired_fastq_to_sam
+            align_paired_fastq_to_sam(args.ref_fa, args.reads_fq, args.mate2,
+                                      args.out_sam,
+                                      min_seed_len=args.min_seed_len,
+                                      device=args.device)
+        else:
+            from .align.engine import align_fastq_to_sam
+            align_fastq_to_sam(args.ref_fa, args.reads_fq, args.out_sam,
+                               min_seed_len=args.min_seed_len)
+    elif args.cmd == "view":
+        from .io.bai import view_region
+        chrom, rng = args.region.split(":")
+        b, e = (int(x) for x in rng.split("-"))
+        try:
+            for r in view_region(args.bam, chrom, b, e):
+                print(f"{r['qname']}\t{r['flag']}\t{chrom}\t{r['pos'] + 1}\t"
+                      f"{r['mapq']}\t{r['cigar']}\t{r['seq']}")
+        except BrokenPipeError:
+            import os
+            os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+    elif args.cmd == "simulate":
+        import numpy as np
+        from .utils.simulate import (build_donor, random_genome,
+                                     simulate_reads, write_fasta)
+        rng = np.random.default_rng(args.seed)
+        G = args.genome_len
+        ref = {"chrS": random_genome(rng, G)}
+        # non-overlapping event slots across the genome
+        n_ev = args.dels + args.invs
+        margin = max(G // 20, 1000)
+        slots = np.linspace(margin, G - margin - 3000, max(n_ev, 1))
+        kinds = ["del"] * args.dels + ["inv"] * args.invs
+        rng.shuffle(kinds)
+        dels, invs = [], []
+        for p, kind in zip(slots, kinds):
+            ln = int(rng.integers(200, 3000))
+            (dels if kind == "del" else invs).append((int(p), int(p) + ln))
+        donor = build_donor(ref, deletions=dels, inversions=invs)
+        write_fasta(f"{args.prefix}.ref.fa", ref)
+        n = simulate_reads(donor, ["chrS"], [G], f"{args.prefix}.bam",
+                           coverage=args.coverage, seed=args.seed)
+        with open(f"{args.prefix}.truth.txt", "w") as f:
+            for t in donor.truth:
+                f.write("\t".join(str(x) for x in t) + "\n")
+        print(f"wrote {args.prefix}.bam ({n} records), "
+              f"{args.prefix}.ref.fa, {args.prefix}.truth.txt",
+              file=sys.stderr)
+    elif args.cmd == "cluster":
+        from .io.bam import read_bam
+        from .pipeline.getsv import calculate_insert_size
+        recs = read_bam(args.bam)
+        mean, dev = calculate_insert_size(recs, args.min_mapq,
+                                          args.read_pair_used)
+        print(f"Bam/sam {args.bam}    Mean insert size : {mean}\n"
+              f"Mean deviation: {dev}", file=sys.stderr)
+    elif args.cmd == "compare":
+        from .pipeline.svcompare import compare
+        compare(args.mode, args.control, args.target, args.out_prefix,
+                fuzz=args.fuzz, n_region_file=args.n_region_file,
+                target_is_crest=args.target_is_crest, chrom=args.chrom,
+                cnv_file=args.cnv_file)
     return 0
 
 

@@ -11,8 +11,15 @@ upload (the padded read matrix), one sync on the overflow flag, and one
 download (the per-candidate score and coordinate scalars).  Every slot,
 valid or not, goes to the kernel: an invalid slot has zero lengths and
 leaves its block at once.
+
+``device_align_auto_enabled`` reads the port's own
+``align/device_align_calibration.json`` (written on the card by
+``python -m seeksv_tpu_torch.scripts.calibrate_device_align``).
 """
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -21,6 +28,22 @@ from ..align.sw import MATCH, PEN_CLIP
 from .extend import extend_batch
 from .seed_device import TOP_CANDIDATES, TorchDeviceSeeder, \
     hit_cap_ladder, pad_reads
+
+
+def device_align_auto_enabled() -> bool:
+    """True only when the committed calibration
+    (align/device_align_calibration.json of this package) measured a
+    break-even of the device front-end against the host front-end
+    (seeksv_tpu/ops/align_device.py:41)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "align",
+        "device_align_calibration.json")
+    try:
+        with open(path) as f:
+            be = json.load(f).get("break_even")
+        return isinstance(be, dict)
+    except (OSError, ValueError):
+        return False
 
 
 def seed_and_gather(seeder: TorchDeviceSeeder, ref: torch.Tensor,

@@ -9,19 +9,29 @@ junction's orientation and insert-size tests (case 0 = +/+ with the
 tandem-duplication closed form, 1 = -/+, 2 = +/-).
 
 - ``discordant_count_plain``: the reference's [J, window_cap] gather and
-  reductions in torch ops, any device.
-- ``discordant_count_batch``: the wrapper.  On a CUDA tensor it launches
-  csrc/discordant_count.cu (one warp per junction) and counts the launch;
-  on a CPU tensor it runs the plain version.
+  reductions in torch ops over the columns, any device.
+- ``pack_junctions``: the junction columns as the kernel reads them, in
+  numpy on the host where the junctions are built: one tensor ``jun``
+  [8, J] int64, a row per field (lo, hi, beg, up_pos, down_pos, min_ins,
+  max_ins, down_tid | code << 32 | same_tid << 34, code 3 for a case
+  code outside 0..2), so that each field is one contiguous copy.
+  ``unpack_junctions`` gives columns back that count the same.
+- ``discordant_count_batch(*record columns, jun, window_cap)``: the
+  wrapper.  On CUDA tensors it launches csrc/discordant_count.cu (a warp
+  a junction over the record columns) and counts the launch; on CPU
+  tensors it runs the plain version on ``unpack_junctions``' columns.
+- ``distinct_records``: the records the windows read, each once (the
+  bytes the call needs at the least).
 
 Positions are int64, as in the host counter (the TPU ran int32).
-Record columns [R]: pos, end, mpos int64; lq, mtid int32; fwd, mfwd,
-base_ok bool.  Junction columns [J]: lo, hi, beg, up_pos, down_pos,
-min_ins, max_ins int64; down_tid, case_code int32; same_tid bool.
-Returns [J] int32.
+Columns: records pos, end, mpos int64; lq, mtid int32; fwd, mfwd,
+base_ok bool.  Junctions lo, hi, beg, up_pos, down_pos, min_ins,
+max_ins int64; down_tid, case_code int32; same_tid bool.  Returns [J]
+int32.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .extend import _check
@@ -41,6 +51,35 @@ JUN_COLS = (("lo", torch.int64), ("hi", torch.int64), ("beg", torch.int64),
             ("down_tid", torch.int32), ("same_tid", torch.bool),
             ("case_code", torch.int32), ("min_ins", torch.int64),
             ("max_ins", torch.int64))
+CODE_NONE = 3   # a case code outside 0..2, in a junction row
+_LOW32 = 0xFFFFFFFF
+
+
+def pack_junctions(lo, hi, beg, up_pos, down_pos, down_tid, same_tid,
+                   case_code, min_ins, max_ins) -> np.ndarray:
+    """jun [8, J] int64 on the host from the junctions' numpy columns
+    (min_ins and max_ins may be scalars): the junctions are built there,
+    so the card gets them as one upload."""
+    i64 = np.int64
+    code = case_code.astype(i64)
+    code[(code < 0) | (code > 2)] = CODE_NONE
+    out = np.empty((8, len(code)), i64)
+    for k, x in enumerate((lo, hi, beg, up_pos, down_pos, min_ins,
+                           max_ins)):
+        out[k] = x
+    out[7] = ((down_tid.astype(i64) & _LOW32) | (code << 32)
+              | (same_tid.astype(i64) << 34))
+    return out
+
+
+def unpack_junctions(jun: torch.Tensor):
+    """Junction columns in discordant_count_plain's order that count what
+    the rows count (a case code of 3 comes back as -1)."""
+    jm = jun[7]
+    code = ((jm >> 32) & 3).to(torch.int32)
+    down_tid = (((jm & _LOW32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+    return (*(jun[k] for k in range(5)), down_tid, ((jm >> 34) & 1) != 0,
+            torch.where(code == CODE_NONE, -1, code), jun[5], jun[6])
 
 
 def discordant_count_plain(pos, end, lq, mpos, mtid, fwd, mfwd, base_ok,
@@ -95,28 +134,49 @@ def discordant_count_plain(pos, end, lq, mpos, mtid, fwd, mfwd, base_ok,
     return hits.sum(1).to(torch.int32)
 
 
-def discordant_count_batch(pos, end, lq, mpos, mtid, fwd, mfwd, base_ok,
-                           lo, hi, beg, up_pos, down_pos, down_tid, same_tid,
-                           case_code, min_ins, max_ins,
-                           window_cap: int) -> torch.Tensor:
-    """Discordant-pair counts of J junction windows.
+def window_ranges(jun: np.ndarray, R: int, window_cap: int):
+    """The clamped record-index range [first, last] of each junction's
+    window ([J] int64 each) and whether it reads any record, as the
+    kernel computes them (numpy)."""
+    lo, hi = jun[0], jun[1]
+    code = (jun[7] >> 32) & 3
+    n = np.minimum(hi - lo, window_cap)
+    live = (n > 0) & (code != CODE_NONE) & (R > 0)
+    first = np.clip(lo, 0, max(R - 1, 0))
+    last = np.clip(lo + np.maximum(n, 1) - 1, 0, max(R - 1, 0))
+    return first, last, live
 
-    A CUDA tensor launches csrc/discordant_count.cu (no fallback); a CPU
-    tensor runs discordant_count_plain."""
-    dev = lo.device
+
+def distinct_records(jun: np.ndarray, R: int, window_cap: int) -> int:
+    """How many distinct records the junctions' windows read (the union
+    of their clamped ranges)."""
+    first, last, live = window_ranges(jun, R, window_cap)
+    order = np.argsort(first[live], kind="stable")
+    f, la = first[live][order], last[live][order]
+    prev = np.maximum.accumulate(np.concatenate([[-1], la]))[:-1]
+    return int(np.maximum(la - np.maximum(f, prev + 1) + 1, 0).sum())
+
+
+def discordant_count_batch(pos, end, lq, mpos, mtid, fwd, mfwd, base_ok,
+                           jun: torch.Tensor,
+                           window_cap: int) -> torch.Tensor:
+    """Discordant-pair counts of J junction windows from the record
+    columns and the junction rows (pack_junctions).
+
+    CUDA tensors launch csrc/discordant_count.cu (no fallback); CPU
+    tensors run discordant_count_plain on unpack_junctions' columns."""
     recs = (pos, end, lq, mpos, mtid, fwd, mfwd, base_ok)
-    juns = (lo, hi, beg, up_pos, down_pos, down_tid, same_tid, case_code,
-            min_ins, max_ins)
-    R, J = pos.shape[0], lo.shape[0]
+    dev = jun.device
+    R, J = pos.shape[0], jun.shape[-1]
     for (name, dtype), x in zip(REC_COLS, recs):
         _check(name, x, dtype, (R,), dev)
-    for (name, dtype), x in zip(JUN_COLS, juns):
-        _check(name, x, dtype, (J,), dev)
+    _check("jun", jun, torch.int64, (8, J), dev)
     if window_cap < 0:
         raise ValueError(f"window_cap={window_cap} < 0")
     if dev.type == "cpu":
         PLAIN_CALLS["discordant_count"] += 1
-        return discordant_count_plain(*recs, *juns, window_cap=window_cap)
+        return discordant_count_plain(*recs, *unpack_junctions(jun),
+                                      window_cap=window_cap)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from .. import _build
@@ -124,9 +184,8 @@ def discordant_count_batch(pos, end, lq, mpos, mtid, fwd, mfwd, base_ok,
     out = torch.empty(J, dtype=torch.int32, device=dev)
     if J:
         rc = lib.seeksv_discordant_count(
-            *(x.data_ptr() for x in recs), R,
-            *(x.data_ptr() for x in juns), J, window_cap, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            *(x.data_ptr() for x in recs), R, jun.data_ptr(), J, window_cap,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, "seeksv_discordant_count")
         LAUNCHES["discordant_count"] += 1
     return out

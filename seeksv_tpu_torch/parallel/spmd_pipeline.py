@@ -55,7 +55,8 @@ from ..io.bam import (BamRecords, FDUP, FMREVERSE, FMUNMAP, FREVERSE,
 from ..ops import cigar as cg
 from ..ops import coverage as cov_ops
 from ..ops.consensus_scan import consensus_scan_groups
-from ..ops.discordant import discordant_count_batch
+from ..ops.discordant import (JUN_COLS, REC_COLS, discordant_count_batch,
+                             pack_junctions)
 from ..pipeline.driver import native_stage, realign_clips
 from ..pipeline.getclip import (_get_sclip_read, _map_len_no_x,
                                 _store_unmapped)
@@ -994,18 +995,24 @@ def _window_cap(span: np.ndarray) -> int:
     return 1 << max(int(np.ceil(np.log2(max(wmax, 1)))), 6)
 
 
-def _count(mesh, rec: dict, jun: dict, counter, window_cap: int):
-    """K6 on this rank's device over its record and junction columns."""
-    from ..ops.discordant import JUN_COLS, REC_COLS
-    dev = mesh_device(mesh)
+def _count(dev, rec: dict, jun: dict, min_ins: int, max_ins: int,
+           window_cap: int):
+    """K6 on `dev` over host record and junction columns: the record
+    columns uploaded, then _count_uploaded."""
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    J = len(jun["lo"])
-    mins = np.full(J, counter.min_insert, np.int64)
-    maxs = np.full(J, counter.max_insert, np.int64)
-    cols = {**jun, "min_ins": mins, "max_ins": maxs}
-    return discordant_count_batch(
-        *(put(rec[k]) for k, _ in REC_COLS),
-        *(put(cols[k]) for k, _ in JUN_COLS), window_cap=window_cap)
+    return _count_uploaded([put(rec[k]) for k, _ in REC_COLS], jun, min_ins,
+                           max_ins, window_cap)
+
+
+def _count_uploaded(rec_cols, jun: dict, min_ins: int, max_ins: int,
+                    window_cap: int):
+    """K6's work past the record uploads: the junction columns packed on
+    the host into one row a junction and uploaded once, the count over
+    the record columns where they lie."""
+    packed = torch.from_numpy(pack_junctions(
+        *(jun[k] for k, _ in JUN_COLS[:8]), min_ins, max_ins))
+    return discordant_count_batch(*rec_cols, packed.to(rec_cols[0].device),
+                                  window_cap=window_cap)
 
 
 def spmd_discordant_counts(mesh, counter: DiscordantCounter, junctions,
@@ -1024,7 +1031,8 @@ def spmd_discordant_counts(mesh, counter: DiscordantCounter, junctions,
     for k, v in w.items():
         jun[k] = np.zeros(per, v.dtype)   # empty windows count 0
         jun[k][:b - a] = v[a:b]
-    out = _count(mesh, record_columns(counter), jun, counter, window_cap)
+    out = _count(mesh_device(mesh), record_columns(counter), jun,
+                 counter.min_insert, counter.max_insert, window_cap)
     return all_gather(mesh, out)[:J].cpu().numpy()
 
 
@@ -1075,7 +1083,8 @@ def spmd_discordant_counts_sharded(mesh, counter: DiscordantCounter,
     # window indices rebased into this rank's record slice
     jun["lo"][:len(sel)] -= a
     jun["hi"][:len(sel)] -= a
-    out = _count(mesh, rec, jun, counter, window_cap)
+    out = _count(mesh_device(mesh), rec, jun, counter.min_insert,
+                 counter.max_insert, window_cap)
     out = all_gather(mesh, out).reshape(ndev, Jcap).cpu().numpy()
     for r in range(ndev):
         sel = order[bounds[r]:bounds[r + 1]]

@@ -4,13 +4,15 @@ in-framework call — no external aligner, no awk.
 
 Counterpart of ``seeksv_tpu/pipeline/driver.py``: read_bam -> getclip ->
 realign_clips -> getsv [-> somatic], with ``realign_clips`` driving a
-``BatchAligner`` on an explicit device.  There is no profiler hook and no
-calibration.
+``BatchAligner`` on an explicit device, and ``profile_dir`` tracing the
+span from read_bam through getsv with ``torch.profiler``.
 """
 from __future__ import annotations
 
+import contextlib
 import gzip
 import io
+import os
 import time
 from typing import Optional
 
@@ -160,8 +162,22 @@ def native_stage(device: torch.device, stages: dict) -> None:
     stages["native"] = time.perf_counter() - t
 
 
+def _profiled(profile_dir: Optional[str], device: torch.device):
+    """A torch.profiler context over CPU and, on a CUDA device, CUDA
+    activity; a null context without profile_dir."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
 def run_pipeline(ref_fa: str, bam: str, prefix: str, *, device="cuda",
                  normal_bam: Optional[str] = None, force_host: bool = False,
+                 rescue: bool = False, filtered_out=None,
+                 profile_dir: Optional[str] = None,
                  device_seed: bool = False, device_align: bool = False,
                  index: Optional[KmerIndex] = None,
                  log=lambda *a: None) -> dict:
@@ -170,7 +186,14 @@ def run_pipeline(ref_fa: str, bam: str, prefix: str, *, device="cuda",
 
     device: where the extension and finalize kernels run (``cuda`` or
     ``cpu`` for their plain versions).  force_host: keep both on the
-    native host kernels.  device_seed / device_align: the device
+    native host kernels.  rescue: getsv writes the unmapped clipped
+    sequences to ``{prefix}.unmapped.clip.fq`` (``getsv --rescue``).
+    filtered_out: a text stream that takes getsv's filtered candidates.
+    profile_dir: trace read_bam through getsv with ``torch.profiler``
+    (CPU and, on a CUDA device, CUDA activity) and write the Chrome trace
+    to ``{profile_dir}/{basename(prefix)}.trace.json``; where the
+    reference's ``try/except`` runs on without a trace when the profiler
+    fails to start, this raises.  device_seed / device_align: the device
     front-ends of ``run --device-seed`` / ``--device-align`` (seeding on
     the device; or seeding, window gather and both extension rounds).
     index: a prebuilt k-mer index of ``ref_fa``
@@ -184,32 +207,42 @@ def run_pipeline(ref_fa: str, bam: str, prefix: str, *, device="cuda",
     stages = {}
     t0 = time.perf_counter()
     native_stage(device, stages)
-    t = time.perf_counter()
-    recs = read_bam(bam)
-    stages["read_bam"] = time.perf_counter() - t
-    log(f"[{stages['read_bam']:.2f}s] decoded {recs.n} records")
-    t = time.perf_counter()
-    getclip(bam, prefix, recs=recs)
-    stages["getclip"] = time.perf_counter() - t
-    t = time.perf_counter()
-    if index is None:
-        index = Aligner.from_fasta(ref_fa).idx
-    aligner = BatchAligner(index, device=device)
-    stages["index"] = time.perf_counter() - t
-    t = time.perf_counter()
-    realign_clips(ref_fa, f"{prefix}.clip.fq.gz", f"{prefix}.clip.sam",
-                  aligner=aligner, device_seed=device_seed,
-                  device_align=device_align, force_host=force_host)
-    if aligner.device.type == "cuda":
-        torch.cuda.synchronize(aligner.device)
-    stages["realign"] = time.perf_counter() - t
-    log(f"[{time.perf_counter() - t0:.2f}s] realignment done")
-    t = time.perf_counter()
-    getsv(f"{prefix}.clip.sam", bam, f"{prefix}.clip.gz", f"{prefix}.sv",
-          f"{prefix}.unmapped.clip.fq", recs=recs,
-          filtered_out=io.StringIO(), log=log)
-    stages["getsv"] = time.perf_counter() - t
-    log(f"[{time.perf_counter() - t0:.2f}s] getsv done -> {prefix}.sv")
+    with _profiled(profile_dir, device) as prof:
+        t = time.perf_counter()
+        recs = read_bam(bam)
+        stages["read_bam"] = time.perf_counter() - t
+        log(f"[{stages['read_bam']:.2f}s] decoded {recs.n} records")
+        t = time.perf_counter()
+        getclip(bam, prefix, recs=recs)
+        stages["getclip"] = time.perf_counter() - t
+        t = time.perf_counter()
+        if index is None:
+            index = Aligner.from_fasta(ref_fa).idx
+        aligner = BatchAligner(index, device=device)
+        stages["index"] = time.perf_counter() - t
+        t = time.perf_counter()
+        realign_clips(ref_fa, f"{prefix}.clip.fq.gz", f"{prefix}.clip.sam",
+                      aligner=aligner, device_seed=device_seed,
+                      device_align=device_align, force_host=force_host)
+        if aligner.device.type == "cuda":
+            torch.cuda.synchronize(aligner.device)
+        stages["realign"] = time.perf_counter() - t
+        log(f"[{time.perf_counter() - t0:.2f}s] realignment done")
+        t = time.perf_counter()
+        getsv(f"{prefix}.clip.sam", bam, f"{prefix}.clip.gz",
+              f"{prefix}.sv", f"{prefix}.unmapped.clip.fq", recs=recs,
+              rescue=rescue, filtered_out=filtered_out or io.StringIO(),
+              log=log)
+        stages["getsv"] = time.perf_counter() - t
+        log(f"[{time.perf_counter() - t0:.2f}s] getsv done -> {prefix}.sv")
+    if prof is not None:
+        t = time.perf_counter()
+        os.makedirs(profile_dir, exist_ok=True)
+        trace = os.path.join(profile_dir,
+                             f"{os.path.basename(prefix)}.trace.json")
+        prof.export_chrome_trace(trace)
+        stages["profile_export"] = time.perf_counter() - t
+        log(f"profile trace -> {trace}")
     if normal_bam:
         t = time.perf_counter()
         nrecs = read_bam(normal_bam)

@@ -341,10 +341,13 @@ def run_pipeline_streaming(ref_fa: str, bam: str, prefix: str, *,
                            device_seed: bool = False,
                            device_align: bool = False,
                            index: Optional[KmerIndex] = None,
+                           filtered_out=None,
                            log=lambda *a: None) -> dict:
     """Write the outputs of ``run_pipeline`` with bounded-memory ingestion.
-    Arguments as in ``pipeline.driver.run_pipeline`` (no force_host, as
-    in the reference's streaming driver), plus chunk_records
+    Arguments as in ``pipeline.driver.run_pipeline`` (no force_host,
+    rescue or profile_dir, as in the reference's streaming driver;
+    filtered_out, a text stream, takes getsv's filtered candidates),
+    plus chunk_records
     (records per decode slab), min_mapq and read_pair_used (the getsv
     statistics' settings, the reference's defaults).  Returns
     {"stages_s", "aligner"} as ``run_pipeline`` does."""
@@ -376,7 +379,7 @@ def run_pipeline_streaming(ref_fa: str, bam: str, prefix: str, *,
     t = time.perf_counter()
     getsv(f"{prefix}.clip.sam", bam, f"{prefix}.clip.gz", f"{prefix}.sv",
           f"{prefix}.unmapped.clip.fq", stats=stats,
-          filtered_out=io.StringIO(), log=log)
+          filtered_out=filtered_out or io.StringIO(), log=log)
     stages["getsv"] = time.perf_counter() - t
     log(f"[{time.perf_counter() - t0:.2f}s] getsv done -> {prefix}.sv")
     if normal_bam:

@@ -496,18 +496,43 @@ def test_discordant_count_matches_plain(cuda, window_cap):
     """K6 against its plain version: every case, tandem junctions, capped
     and empty windows."""
     from seeksv_tpu_torch.ops import discordant as dc
-    from torch_inputs import discordant_args, discordant_windows
+    from torch_inputs import (discordant_args, discordant_packed,
+                              discordant_windows)
     rec, jun = discordant_windows(window_cap, R=20_000, J=3_000)
     ra, ja = ([torch.from_numpy(x).to(cuda) for x in a]
               for a in discordant_args(rec, jun))
+    packed = discordant_packed(rec, jun, cuda)
     n0 = dc.LAUNCHES["discordant_count"]
-    got = dc.discordant_count_batch(*ra, *ja, window_cap=window_cap)
+    got = dc.discordant_count_batch(*packed, window_cap=window_cap)
     want = dc.discordant_count_plain(*ra, *ja, window_cap=window_cap)
     torch.cuda.synchronize()
     assert dc.LAUNCHES["discordant_count"] == n0 + 1
     assert torch.equal(got, want)
     assert int(got.sum()) > 0
     assert int(got[:8].abs().sum()) == 0          # empty windows
+
+
+def test_discordant_count_edge_cases(cuda):
+    """K6 against its plain version on every edge case of
+    torch_inputs.discordant_edge_cases, and on sorted windows of the SPMD
+    form (lo ascending)."""
+    from seeksv_tpu_torch.ops import discordant as dc
+    from torch_inputs import (discordant_args, discordant_edge_cases,
+                              discordant_packed, discordant_windows)
+    rec, jun = discordant_windows(7, R=50_000, J=4_000)
+    order = np.argsort(jun["lo"], kind="stable")
+    cases = discordant_edge_cases() + [
+        ("sorted", rec, {k: v[order] for k, v in jun.items()}, 256)]
+    for name, rec, jun, window_cap in cases:
+        ra, ja = ([torch.from_numpy(x).to(cuda) for x in a]
+                  for a in discordant_args(rec, jun))
+        n0 = dc.LAUNCHES["discordant_count"]
+        got = dc.discordant_count_batch(*discordant_packed(rec, jun, cuda),
+                                        window_cap=window_cap)
+        want = dc.discordant_count_plain(*ra, *ja, window_cap=window_cap)
+        torch.cuda.synchronize()
+        assert dc.LAUNCHES["discordant_count"] == n0 + (len(ja[0]) > 0)
+        assert torch.equal(got, want), name
 
 
 def test_spmd_on_one_rank_nccl_matches_force_host(cuda, tmp_path):
@@ -572,3 +597,61 @@ def test_front_end_on_cuda_matches_force_host(cuda, tmp_path, flag):
     for suffix in ("clip.sam", "sv"):
         assert (tmp_path / f"dev.{suffix}").read_bytes() == \
             (tmp_path / f"host.{suffix}").read_bytes(), suffix
+
+
+def test_committed_calibration_is_fresh_on_the_card(cuda):
+    """The committed dispatch calibration's fingerprint matches this card
+    (its name, its upload rate within 4x)."""
+    from seeksv_tpu_torch.align.engine import BatchAligner
+    BatchAligner._load_calibration.cache_clear()
+    assert BatchAligner.calibration_stale() is None
+
+
+def test_aln_paired_on_cuda_matches_force_host(cuda, tmp_path):
+    """aln -2 on the card: both ends through K1 both ways, the finalize
+    through K2 and K3 (600-base ends), both ends' dispatch choosing the
+    device under the committed crossovers; the SAM byte-identical to
+    force_host's."""
+    from seeksv_tpu_torch.align.engine import align_paired_fastq_to_sam
+    from torch_inputs import paired_fastqs
+    fa, (fq1, fq2) = paired_fastqs(tmp_path, 3, 200_000, 600, 150, 1500, 60,
+                                   odd=4, sub_rate=0.01)
+    _reset(ext.LAUNCHES, tgd.LAUNCHES, tsd.LAUNCHES)
+    res = align_paired_fastq_to_sam(fa, fq1, fq2, str(tmp_path / "d.sam"),
+                                    device="cuda")
+    counts = {**ext.LAUNCHES, **tgd.LAUNCHES, **tsd.LAUNCHES}
+    align_paired_fastq_to_sam(fa, fq1, fq2, str(tmp_path / "h.sam"),
+                              device="cuda", force_host=True)
+    used = ("extend_left", "extend_right", "banded_dir", "traceback")
+    assert min(counts[k] for k in used) > 0, counts
+    assert all(v == 0 for k, v in counts.items() if k not in used), counts
+    assert all(d["chose_device"] and d["crossover_applied"]
+               for d in res["dispatch"]), res["dispatch"]
+    assert (tmp_path / "d.sam").read_bytes() == \
+        (tmp_path / "h.sam").read_bytes()
+
+
+def test_cli_run_rescue_profile_on_cuda(cuda, tmp_path):
+    """`run --rescue --profile DIR` through the port's CLI on the card:
+    force_host's bytes with rescue, and a trace that names the kernels."""
+    import gzip
+    import json
+
+    from seeksv_tpu_torch import cli
+    from seeksv_tpu_torch.pipeline.driver import run_pipeline
+    p = _small_dataset(tmp_path)
+    assert cli.main(["run", "--rescue", "--profile", str(tmp_path / "prof"),
+                     "-o", str(tmp_path / "dev"), p["ref_fa"],
+                     p["bam"]]) == 0
+    run_pipeline(p["ref_fa"], p["bam"], str(tmp_path / "host"),
+                 device="cuda", force_host=True, rescue=True)
+    for suffix in ("clip.sam", "sv", "unmapped.clip.fq"):
+        assert (tmp_path / f"dev.{suffix}").read_bytes() == \
+            (tmp_path / f"host.{suffix}").read_bytes(), suffix
+    with gzip.open(tmp_path / "dev.clip.gz") as a, \
+            gzip.open(tmp_path / "host.clip.gz") as b:
+        assert a.read() == b.read()
+    with open(tmp_path / "prof" / "dev.trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    for kernel in ("extend_kernel", "banded_dir_kernel", "traceback_kernel"):
+        assert any(kernel in n for n in names), kernel

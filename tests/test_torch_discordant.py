@@ -11,6 +11,7 @@ import torch.distributed as dist
 from seeksv_tpu.ops.jax_kernels import discordant_count_batch as jax_count
 from seeksv_tpu_torch.ops import discordant as dc
 from torch_inputs import discordant_args as _args
+from torch_inputs import discordant_edge_cases, discordant_packed
 from torch_inputs import discordant_windows as _synthetic
 
 # several test workers share few cores: one intra-op thread each
@@ -72,14 +73,89 @@ def test_tandem_ceil_with_numerators_of_both_signs():
 def test_wrapper_on_cpu_runs_plain():
     rec, jun = _synthetic(3)
     ra, ja = (list(map(torch.from_numpy, a)) for a in _args(rec, jun))
+    packed = discordant_packed(rec, jun)
     n0 = dc.PLAIN_CALLS["discordant_count"]
-    got = dc.discordant_count_batch(*ra, *ja, window_cap=256)
+    got = dc.discordant_count_batch(*packed, window_cap=256)
     assert dc.PLAIN_CALLS["discordant_count"] == n0 + 1
     assert dc.LAUNCHES["discordant_count"] == 0
     assert torch.equal(got, dc.discordant_count_plain(*ra, *ja,
                                                       window_cap=256))
     with pytest.raises(TypeError):
-        dc.discordant_count_batch(ra[0].int(), *ra[1:], *ja, window_cap=256)
+        dc.discordant_count_batch(packed[0].int(), *packed[1:],
+                                  window_cap=256)
+    with pytest.raises(ValueError):
+        dc.discordant_count_batch(*packed[:8], packed[8][:3].contiguous(),
+                                  window_cap=256)
+
+
+def test_pack_junctions_round_trip():
+    """pack_junctions takes min_ins and max_ins as columns or scalars,
+    writes every field at full width into its row of the [8, J] tensor,
+    and unpack_junctions gives the columns back (a case code outside
+    0..2 as -1)."""
+    rec, jun = _synthetic(5)
+    ja = _args(rec, jun)[1]
+    ja[5][:3] = (np.iinfo(np.int32).min, -1, np.iinfo(np.int32).max)
+    ja[7][:4] = (-5, 3, 7, 2)
+    ja[8][:], ja[9][:] = 1500, 4200   # the pipeline's: one insert model
+    rows = dc.pack_junctions(*ja)
+    assert rows.dtype == np.int64 and rows.shape == (8, len(ja[0]))
+    assert np.array_equal(rows, dc.pack_junctions(*ja[:8], 1500, 4200))
+    back = dc.unpack_junctions(torch.from_numpy(rows))
+    code = np.where((ja[7] >= 0) & (ja[7] <= 2), ja[7], -1)
+    for (name, dtype), x, want in zip(dc.JUN_COLS, back,
+                                      (*ja[:7], code, *ja[8:])):
+        assert x.dtype == dtype, name
+        assert np.array_equal(x.numpy(), want), name
+
+
+EDGES = discordant_edge_cases()
+
+
+@pytest.mark.parametrize("case", range(len(EDGES)),
+                         ids=[c[0] for c in EDGES])
+def test_packed_layout_matches_jax(case):
+    """The packed junctions (pack_junctions), unpacked to columns, count
+    what the plain version counts on the original columns and, exactly,
+    what the JAX package counts there, on every edge case.  (A case code
+    outside 0..2 counts nothing in the port; the JAX program's
+    take_along_axis fills such rows, so those rows are held against the
+    plain version alone.)"""
+    _name, rec, jun, window_cap = EDGES[case]
+    ra, ja = _args(rec, jun)
+    want = dc.discordant_count_plain(*map(torch.from_numpy, ra),
+                                     *map(torch.from_numpy, ja),
+                                     window_cap=window_cap).numpy()
+    packed = discordant_packed(rec, jun)
+    juns = dc.unpack_junctions(packed[8])
+    got = dc.discordant_count_batch(*packed, window_cap=window_cap)
+    assert np.array_equal(got.numpy(), want)
+    in_range = (ja[7] >= 0) & (ja[7] <= 2)
+    assert (want[~in_range] == 0).all()
+    if len(ra[0]) and "int32" not in _name:
+        # the JAX gather needs a record; its sums are int32
+        jx = np.asarray(jax_count(*ra, *ja, window_cap=window_cap))
+        assert np.array_equal(jx[in_range], want[in_range])
+        ux = np.asarray(jax_count(*ra, *(x.numpy() for x in juns),
+                                  window_cap=window_cap))
+        assert np.array_equal(ux[in_range], want[in_range])
+    elif not len(ra[0]):
+        assert (want == 0).all()
+
+
+def test_distinct_records_counts_the_windows_union():
+    """distinct_records, the bound's count of the records a call needs,
+    against a set of every record index the windows visit (clamped)."""
+    rec, jun = _synthetic(4)
+    packed = discordant_packed(rec, jun)[8]
+    R, cap = len(rec["pos"]), 128
+    seen = set()
+    for j in range(len(jun["lo"])):
+        lo, hi = int(jun["lo"][j]), int(jun["hi"][j])
+        seen.update(min(max(lo + w, 0), R - 1)
+                    for w in range(min(hi - lo, cap)))
+    assert dc.distinct_records(packed.numpy(), R, cap) == len(seen) > 0
+    assert dc.distinct_records(packed.numpy()[:, :0], R, cap) == 0
 
 
 @pytest.fixture(scope="module")

@@ -195,8 +195,75 @@ def discordant_windows(seed, R=4000, J=400):
 
 
 def discordant_args(rec, jun):
-    """The columns in discordant_count_batch's argument order."""
+    """The columns in discordant_count_plain's argument order."""
     return ([rec[k] for k, _ in dc.REC_COLS], [jun[k] for k, _ in dc.JUN_COLS])
+
+
+def discordant_packed(rec, jun, device="cpu"):
+    """The wrapper's arguments on `device`, as
+    parallel.spmd_pipeline._count makes them: the eight record columns
+    and the junction rows."""
+    ra, ja = discordant_args(rec, jun)
+    return (*(torch.from_numpy(a).to(device) for a in ra),
+            torch.from_numpy(dc.pack_junctions(*ja)).to(device))
+
+
+def discordant_edge_cases(seed=0):
+    """K6's edge inputs, (name, records, junctions, window_cap): empty
+    windows, windows starting past R and before 0, no records at all,
+    case codes outside 0..2, the tandem closed form with numerators of
+    both signs, windows wider than window_cap, unmapped mates (mtid -1)
+    and lq / mtid at the ends of int32 (where the JAX program's int32
+    sums wrap and the port's int64 sums do not)."""
+    out = []
+    rec, jun = discordant_windows(seed, R=600, J=64)
+    R = len(rec["pos"])
+    e = {k: v.copy() for k, v in jun.items()}
+    e["hi"][8:16] = e["lo"][8:16] - np.arange(8)          # lo >= hi
+    out.append(("empty windows", rec, e, 256))
+    e = {k: v.copy() for k, v in jun.items()}
+    e["lo"][8:24] = R + np.arange(16)                     # past R
+    e["hi"][8:24] = R + 40
+    e["lo"][24:32] = -np.arange(1, 9) * 7                 # before 0
+    out.append(("lo past R and below 0", rec, e, 64))
+    empty = {k: v[:0].copy() for k, v in rec.items()}
+    out.append(("R = 0", empty, jun, 64))
+    e = {k: v.copy() for k, v in jun.items()}
+    e["case_code"][8:40] = np.array([-1, 3, 7, -5] * 8, np.int32)
+    out.append(("case codes outside 0..2", rec, e, 256))
+    # one +/+ tandem junction (period 3) over records whose min_ins - ins
+    # is -7 .. 7, then the same with max_ins = min_ins + 1
+    up, dn, mini = 1000, 998, 300
+    ins = mini - np.arange(-7, 8)
+    n = len(ins)
+    lq = np.full(n, 100, np.int32)
+    pos = np.full(n, 850, np.int64)
+    t_rec = {"pos": pos, "end": pos + lq, "lq": lq,
+             "mpos": (ins - (up - pos + lq - dn + 1)).astype(np.int64),
+             "mtid": np.zeros(n, np.int32), "fwd": np.ones(n, bool),
+             "mfwd": np.zeros(n, bool), "base_ok": np.ones(n, bool)}
+    one = lambda v, t=np.int64: np.asarray([v, v], t)
+    t_jun = {"lo": one(0), "hi": one(n), "beg": one(0), "up_pos": one(up),
+             "down_pos": one(dn), "down_tid": one(0, np.int32),
+             "same_tid": one(True, bool), "case_code": one(0, np.int32),
+             "min_ins": one(mini), "max_ins": np.asarray([320, mini + 1])}
+    out.append(("tandem numerators of both signs", t_rec, t_jun, 64))
+    e = {k: v.copy() for k, v in jun.items()}
+    e["lo"][8:24] = 0
+    e["hi"][8:24] = R                                     # R > window_cap
+    out.append(("windows wider than window_cap", rec, e, 64))
+    r = {k: v.copy() for k, v in rec.items()}
+    r["mtid"][::5] = -1
+    e = {k: v.copy() for k, v in jun.items()}
+    e["down_tid"][::3] = -1
+    out.append(("unmapped mates", r, e, 256))
+    r = {k: v.copy() for k, v in r.items()}
+    r["lq"][1::7] = np.iinfo(np.int32).max
+    r["mtid"][2::11] = np.iinfo(np.int32).min
+    r["mtid"][3::11] = np.iinfo(np.int32).max
+    e["down_tid"][1::3] = np.iinfo(np.int32).max
+    out.append(("lq and mtid at the ends of int32", r, e, 256))
+    return out
 
 
 # ---- the walk (K3): direction blocks with a planted path
@@ -510,3 +577,59 @@ def evidence_batch_numpy(genome_len, n_reads, n_jobs, lq, lt, seed):
         "cand_key": rng.integers(0, 1 << 20, n_reads).astype(np.int64),
         "cand_support": np.ones(n_reads, np.int32),
     }
+
+
+# ---- aln -2: FASTQ pairs on a simulated genome
+
+def _revcomp(s: bytes) -> bytes:
+    return s.translate(bytes.maketrans(b"ACGT", b"TGCA"))[::-1]
+
+
+def paired_fastqs(root, seed, G, L, n_pairs, frag_mean, frag_sd, odd=0,
+                  sub_rate=0.0):
+    """A two-contig genome (chrA of G bases, chrB of G / 2) written to
+    root/ref.fa and n_pairs FR pairs in root/r{1,2}.fq.gz (r1 forward,
+    r2 the reverse complement of the fragment's end; fragment ~N(mean,
+    sd)), with `odd` more of each kind: ends on the two contigs, both
+    forward, RF, a random (unmapped) end; each base substituted with
+    probability sub_rate.  Returns (ref.fa, [r1, r2])."""
+    import gzip
+    import os
+
+    from seeksv_tpu_torch.utils.simulate import random_genome, write_fasta
+    rng = np.random.default_rng(seed)
+    g = {"chrA": random_genome(rng, G), "chrB": random_genome(rng, G // 2)}
+    fa = os.path.join(str(root), "ref.fa")
+    write_fasta(fa, g)
+    a = g["chrA"].tobytes()
+    b = g["chrB"].tobytes()
+    pairs = []
+    for _ in range(n_pairs):
+        frag = int(rng.normal(frag_mean, frag_sd))
+        s = int(rng.integers(0, G - frag - 1))
+        pairs.append((a[s:s + L], _revcomp(a[s + frag - L:s + frag])))
+    for _ in range(odd):
+        s = int(rng.integers(0, G // 2 - 2 * L))
+        t = int(rng.integers(0, G // 2 - 2 * L))
+        pairs.append((a[s:s + L], _revcomp(b[t:t + L])))          # apart
+        pairs.append((a[s:s + L], a[s + 300:s + 300 + L]))        # FF
+        pairs.append((_revcomp(a[s:s + L]), a[s + 300:s + 300 + L]))  # RF
+        rnd = bytes(b"ACGT"[x] for x in rng.integers(0, 4, L))
+        pairs.append((a[t:t + L], rnd))                           # unmapped
+    paths = []
+    for end in (0, 1):
+        p = os.path.join(str(root), f"r{end + 1}.fq.gz")
+        with gzip.open(p, "wt") as f:
+            for i, pr in enumerate(pairs):
+                seq = np.frombuffer(pr[end], np.uint8).copy()
+                if sub_rate:
+                    m = rng.random(len(seq)) < sub_rate
+                    seq[m] = np.frombuffer(b"CGTA", np.uint8)[
+                        np.searchsorted(np.frombuffer(b"ACGT", np.uint8),
+                                        seq[m])]
+                f.write(f"@p{i}/{end + 1} extra\n{seq.tobytes().decode()}\n"
+                        f"+\n{''.join('I#'[(i + k) % 2] for k in range(L))}"
+                        "\n")
+        paths.append(p)
+    return fa, paths
+
