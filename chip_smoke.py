@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (seeksv_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--workdir build/chip_smoke] [--parent DIR]
+                          [--scale-mb 10] [--scale-only]
 
 Phases (each prints its lines; any failure exits non-zero):
 
@@ -118,7 +119,21 @@ Phases (each prints its lines; any failure exits non-zero):
    and decompressed ``.clip.gz`` (the multi-process run's own rank-0
    clip files) must be byte-identical to it, no chunk may overflow to
    host seeding, and at least 90 % of the virus junctions of the truth
-   must be called.
+   must be called;
+4. scale: the port's scale programs through their ``main(argv)`` on the
+   card, on short reads (100 bp, 30x, 20 events a Mbp) with the genome
+   cut to ``--scale-mb`` (10 Mbp by default, of the JAX record's 100),
+   one trial each, datasets and index cached under the workdir:
+   ``scripts/bench_scale.py --stream --ab`` (the arms' sv rows and
+   clip streams identical, DEL recall >= 0.95, the device arm's dispatch
+   on the card in K1's first query-length bin; K1 then held against its
+   plain version and timed beside its bound on that arm's first call),
+   ``scripts/bench_somatic_scale.py`` (somatic parity exact, recall >=
+   0.95, no germline deletion leaked), ``entry()``'s step against its
+   plain version, exactly, and ``scripts/bench_stream_spmd.py`` on one
+   NCCL rank (sv rows equal to the sequential stream's); each run must
+   launch exactly its own kernels.  ``--scale-only`` runs phase 2's K1
+   check and this phase alone (the full-size measurements).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -954,11 +969,13 @@ def _bins_in_job_order(plan_bins):
     return plan
 
 
-def check_extend_path(kept, rows):
-    """K1 on the default run's own first call (its left round: the jobs
-    the flagship really dispatches, not phase 2's uniform lengths)
-    against the plain version, timed beside its bound, and timed once more
-    with the dispatch's order inside a bin switched off."""
+def check_extend_path(kept, rows, run="the default run",
+                      key="on_the_runs_jobs"):
+    """K1 on a run's own first call (by default the flagship run's left
+    round: the jobs the flagship really dispatches, not phase 2's uniform
+    lengths) against the plain version, timed beside its bound, and timed
+    once more with the dispatch's order inside a bin switched off; the
+    numbers go to rows["extend_left"][key]."""
     import torch
 
     from seeksv_tpu_torch.ops import extend as ext
@@ -982,7 +999,7 @@ def check_extend_path(kept, rows):
     cells, count, bound = _extend_bound(args[1], want, 0.5, 0.5)
     qlen = args[1].cpu().numpy()
     B, LQ, LT = len(qlen), args[7], args[8]
-    _say(f"extend_left on the default run's jobs: B={B} LQ={LQ} LT={LT} "
+    _say(f"extend_left on {run}'s jobs: B={B} LQ={LQ} LT={LT} "
          f"qlen mean {qlen.mean():.1f} max {qlen.max()}, rows mean "
          f"{float(want['rows'].float().mean()):.1f}: max_abs_err={err} "
          f"kernel {ms:.3f} ms (again {ms_again:.3f}; with a bin's jobs in "
@@ -991,8 +1008,8 @@ def check_extend_path(kept, rows):
          f"{bound[0]:.4g} ms by {bound[1]} ({count})")
     if err:
         raise AssertionError("extend_left disagrees with its plain version "
-                             "on the run's own jobs")
-    rows["extend_left"]["on_the_runs_jobs"] = {
+                             f"on {run}'s own jobs")
+    rows["extend_left"][key] = {
         "B": B, "LQ": LQ, "LT": LT, "cells": cells, "max_abs_err": err,
         "ms": ms, "ms_again": ms_again, "ms_bins_in_job_order": job_order_ms,
         "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]}
@@ -1597,6 +1614,14 @@ EXPECTED = {
     "aln_paired": ("extend_left", "extend_right", "banded_dir", "traceback"),
     "cli_rescue_profile": ("extend_left", "extend_right", "banded_dir",
                            "traceback"),
+    # the scale phase on 100 bp reads: no finalize job is long enough for
+    # the card (m, n > 256), and the SPMD stream merges its consensus on
+    # the host, as the JAX script does
+    "scale_ab": ("extend_left", "extend_right"),
+    "scale_somatic": ("extend_left", "extend_right"),
+    "scale_entry": ("extend_right",),
+    "scale_stream_spmd": ("extend_left", "extend_right", "extend_windows",
+                          "discordant_count"),
 }
 # the runs that write the pipeline's outputs, each compared with
 # force_host's; the multi-process run's clip files are its rank 0's
@@ -2050,6 +2075,105 @@ def run_slice(dev, workdir, card, rows):
     return launches
 
 
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_scale(dev, workdir, rows, genome_mb):
+    """Phase 4: the port's scale programs through their main(argv) on the
+    card, on short reads (100 bp, 30x, 20 events a Mbp) with the genome
+    cut to genome_mb: bench_scale's streamed A/B (K1 held against its
+    plain version on the device arm's first call), bench_somatic_scale,
+    entry()'s step and bench_stream_spmd on one NCCL rank.  Returns the
+    launches of each run."""
+    import torch
+
+    from seeksv_tpu_torch.entry import entry
+    from seeksv_tpu_torch.ops import extend as ext
+    from seeksv_tpu_torch.scripts import (bench_scale, bench_somatic_scale,
+                                          bench_stream_spmd)
+    t_phase = time.perf_counter()
+    # the datasets' and the index's caches under the workdir
+    os.environ["HOME"] = os.path.join(workdir, "home")
+    out = os.path.join(workdir, "scale")
+    os.makedirs(out, exist_ok=True)
+    events = round(20 * genome_mb)
+    common = ["--genome-mb", f"{genome_mb:g}", "--coverage", "30",
+              "--read-len", "100", "--events", str(events), "--trials", "1"]
+    _say(f"scale: cut to {genome_mb:g} Mbp of the JAX record's 100 Mbp row "
+         f"(BENCH_SCALE.jsonl:29), {events} events (20 a Mbp, as its 2,000 "
+         f"at 100 Mbp), 1 trial of its 3; coverage 30 and 100 bp reads as "
+         f"there")
+    launches = {}
+
+    def drive(name, fn):
+        res, launches[name] = _drive(name, fn)
+        if res:
+            raise AssertionError(f"scale {name}: exit code {res}")
+
+    kept = {}
+    undo = _keep_first_call(ext, "extend_batch_resident", kept)
+    ab_path = os.path.join(out, "ab.jsonl")
+    try:
+        drive("scale_ab", lambda: bench_scale.main(
+            common + ["--stream", "--ab", "--out", ab_path]))
+    finally:
+        undo()
+    ab = _jsonl(ab_path)
+    for row in ab:
+        _say(f"scale bench_scale: {json.dumps(row)}")
+    dev_row = ab[0]
+    d = dev_row["dispatch"]
+    if not (dev_row["arm"] == "device" and dev_row["ab"]["arms_sv_identical"]
+            and all(r["clip_parity"] == "exact" for r in ab)
+            and dev_row["truth_del_recall"] >= 0.95 and d["chose_device"]
+            and d["crossover_applied"] and d["LQ"] <= ext.BIN_EDGES[0]):
+        raise AssertionError("scale bench_scale: the arms differ, recall "
+                             "< 0.95 or the device arm did not extend on "
+                             f"the card in the first query-length bin: {d}")
+    _say(f"scale bench_scale: arms identical, DEL recall "
+         f"{dev_row['truth_del_recall']}, the device arm's dispatch chose "
+         f"the card at LQ {d['LQ']} (kernel bin <= {ext.BIN_EDGES[0]}), "
+         f"{d['n_jobs']} jobs; realign s: device "
+         f"{dev_row['ours_stages_s']['realign']}, forced_host "
+         f"{ab[1]['ours_stages_s']['realign']}")
+    check_extend_path(kept["extend_batch_resident"], rows,
+                      run=f"the {genome_mb:g} Mbp short-read run",
+                      key="on_the_short_read_jobs")
+    del kept
+    som_path = os.path.join(out, "somatic.jsonl")
+    drive("scale_somatic", lambda: bench_somatic_scale.main(
+        common + ["--seed", "2", "--out", som_path]))
+    (som,) = _jsonl(som_path)
+    _say(f"scale bench_somatic_scale: {json.dumps(som)}")
+    if not (som["somatic_parity"] == "exact" and som["germline_leaked"] == 0
+            and som["somatic_truth_recall_ours"] >= 0.95):
+        raise AssertionError("scale bench_somatic_scale: parity, recall or "
+                             "a germline leak")
+    fn, args = entry(dev)
+    res, launches["scale_entry"] = _drive("scale_entry", lambda: fn(*args))
+    want = ext.extend_batch_resident_plain(*args, 1 << 16, 64, 128, False)
+    torch.cuda.synchronize()
+    err = _max_abs_err([(res[k], want[k]) for k in ext.KEYS])
+    _say(f"scale entry(): B={len(args[1])} LQ 64 LT 128 on the card against "
+         f"the plain version: max_abs_err={err}")
+    if err:
+        raise AssertionError("entry()'s step disagrees with its plain "
+                             "version")
+    spmd_path = os.path.join(out, "stream_spmd.jsonl")
+    drive("scale_stream_spmd", lambda: bench_stream_spmd.main(
+        common + ["--ranks", "1", "--out", spmd_path]))
+    (spmd,) = _jsonl(spmd_path)
+    _say(f"scale bench_stream_spmd: {json.dumps(spmd)}")
+    if spmd["sv_parity_vs_sequential_stream"] != "exact":
+        raise AssertionError("scale bench_stream_spmd: sv rows differ from "
+                             "the sequential stream")
+    _say(f"scale: phase {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workdir", default=os.path.join(HERE, "build",
@@ -2061,6 +2185,11 @@ def main() -> int:
                          "and seed_lookup.cu are built apart and timed in "
                          "turns with this one's on the same inputs; where "
                          "a source differs, this one's must be the faster")
+    ap.add_argument("--scale-mb", type=float, default=10,
+                    help="the scale phase's genome, Mbp (its datasets are "
+                         "built at this size)")
+    ap.add_argument("--scale-only", action="store_true",
+                    help="after phase 2's K1 check, only the scale phase")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2079,14 +2208,18 @@ def main() -> int:
     rng = np.random.default_rng(1)
     rows = {}
     genome, refp = check_extend(dev, rng, rows)
-    check_extend_windows(dev, rng, rows)
-    check_extend_mixed(dev, rng, genome, refp)
+    by_run = {}
+    if not args.scale_only:
+        check_extend_windows(dev, rng, rows)
+        check_extend_mixed(dev, rng, genome, refp)
     del genome, refp
-    check_finalize(dev, rng, rows)
-    check_walks(dev)
-    check_finalize_edges(dev, rng)
-    check_consensus_paths(dev)
-    by_run = run_slice(dev, args.workdir, card, rows)
+    if not args.scale_only:
+        check_finalize(dev, rng, rows)
+        check_walks(dev)
+        check_finalize_edges(dev, rng)
+        check_consensus_paths(dev)
+        by_run = run_slice(dev, args.workdir, card, rows)
+    by_run.update(run_scale(dev, args.workdir, rows, args.scale_mb))
     kernels = []
     for name, row in rows.items():
         per_run = {run: c[name] for run, c in by_run.items()}

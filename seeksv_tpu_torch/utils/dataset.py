@@ -12,6 +12,11 @@ The virus-integration flagship of the repo's scale benchmark is
 ``build_dataset(root, 40_000_000, 25, 1000, 1, 30, False, virus_kb=12_000,
 virus_events=6_000, virus_div=0.04)``: 40 Mb host + 12 Mb panel, 25x,
 1 kb reads, insert mean 3000, 6,000 integrations at 4 % divergence.
+
+``build_somatic_dataset`` is scripts/bench_somatic_scale.py:build_dataset
+without the same last step: a tumour / normal pair of BAMs over one
+genome.  ``sv_rows``, ``sv_recall`` and ``truth_recall`` score an
+``.sv`` file against ``build_dataset``'s truth.
 """
 from __future__ import annotations
 
@@ -114,21 +119,79 @@ def build_dataset(root, G, cov, read_len, seed, n_events, with_repeats,
     return paths
 
 
-def truth_recall(truth_path: str, sv_path: str):
-    """(DEL recall, virus-junction recall or None) of an ``.sv`` file
-    against ``truth.json``: a call matches a truth breakpoint pair when
-    both breakends lie within 50 bp on the same chromosomes (the
-    reference's merge window); an integration has two junctions
-    (host -> virus and virus -> host).  As scripts/bench_scale.py:
-    sv_recall."""
-    with open(truth_path) as f:
-        truth = json.load(f)
+def build_somatic_dataset(root, G, cov, read_len, seed, n_events,
+                          log=lambda *a: None) -> dict:
+    """The tumour / normal pair of scripts/bench_somatic_scale.py:
+    build_dataset, without its last step (the reference's binaries and a
+    bwa index): one random genome (``chr17``), ``n_events`` deletions
+    alternating germline and somatic; the tumour donor carries both, the
+    normal donor the germline ones only, reads simulated from seed
+    ``seed`` (tumour) and ``seed + 1`` (normal).  Writes ``tumor.bam``,
+    ``normal.bam`` (+ ``.bai``), ``ref.fa`` and ``truth.json``
+    (``somatic``: the somatic deletions' breakends, ``germline``: the
+    germline deletions' intervals); a ``.done`` marker skips a finished
+    build.  Returns the paths."""
+    paths = {"tumor": os.path.join(root, "tumor.bam"),
+             "normal": os.path.join(root, "normal.bam"),
+             "ref_fa": os.path.join(root, "ref.fa"),
+             "truth": os.path.join(root, "truth.json")}
+    os.makedirs(root, exist_ok=True)
+    done = os.path.join(root, ".done")
+    if os.path.exists(done):
+        return paths
+    t0 = time.time()
+    rng = np.random.default_rng(seed)
+    g = random_genome(rng, G)
+    ref = {"chr17": g}
+    margin = 50_000
+    slots = np.linspace(margin, G - margin - 10_000, max(n_events, 1))
+    germline, somatic_only = [], []
+    for i, p in enumerate(slots):
+        ln = int(rng.integers(200, 5_000))
+        (germline if i % 2 == 0 else somatic_only).append(
+            (int(p), int(p) + ln))
+    tumor = build_donor(ref, deletions=sorted(germline + somatic_only))
+    normal = build_donor(ref, deletions=sorted(germline))
+    # the somatic deletions' breakends (a donor of those alone gives them)
+    som_truth = [(t[2], t[4]) for t in
+                 build_donor(ref, deletions=sorted(somatic_only)).truth
+                 if t[0] == "DEL"]
+    with open(paths["truth"], "w") as f:
+        json.dump({"somatic": som_truth, "germline": germline}, f)
+    insert_mean = max(500, 3 * read_len)
+    n = {}
+    for name, donor, s in (("tumor", tumor, seed), ("normal", normal,
+                                                     seed + 1)):
+        n[name] = simulate_reads(donor, ["chr17"], [G], paths[name],
+                                 coverage=cov, seed=s, error_rate=0.002,
+                                 read_len=read_len, insert_mean=insert_mean)
+    for name in ("tumor", "normal"):
+        build_index(paths[name])
+    write_fasta(paths["ref_fa"], ref)
+    log(f"# simulated tumour / normal {G / 1e6:g} Mbp x {cov} "
+        f"({len(germline)} germline, {len(somatic_only)} somatic DEL; "
+        f"{n['tumor']} / {n['normal']} records) in {time.time() - t0:.1f}s")
+    open(done, "w").close()
+    return paths
+
+
+def sv_rows(path: str) -> list:
+    """The call rows of an ``.sv`` file (its ``@`` header left out)."""
+    with open(path) as f:
+        return [ln for ln in f if not ln.startswith("@")]
+
+
+def sv_recall(truth: list, rows: list):
+    """(DEL recall, virus-junction recall or None) of ``.sv`` call rows
+    against the truth list of ``build_dataset``: a call matches a truth
+    breakpoint pair when both breakends lie within 50 bp on the same
+    chromosomes (the reference's merge window); an integration has two
+    junctions (host -> virus and virus -> host).  As
+    scripts/bench_scale.py:sv_recall."""
     calls = []
-    with open(sv_path) as f:
-        for line in f:
-            if not line.startswith("@"):
-                fl = line.split("\t")
-                calls.append((fl[0], int(fl[1]), fl[4], int(fl[5])))
+    for line in rows:
+        fl = line.split("\t")
+        calls.append((fl[0], int(fl[1]), fl[4], int(fl[5])))
     cu = np.asarray([c[1] for c in calls], np.int64)
     cd = np.asarray([c[3] for c in calls], np.int64)
 
@@ -148,3 +211,10 @@ def truth_recall(truth_path: str, sv_path: str):
                + hit(t["down_chrom"], t["right_up"], t["up_chrom"],
                      t["right_down"]) for t in vints)
     return del_recall, round(vhit / (2 * len(vints)), 4)
+
+
+def truth_recall(truth_path: str, sv_path: str):
+    """``sv_recall`` of an ``.sv`` file against ``truth.json``."""
+    with open(truth_path) as f:
+        truth = json.load(f)
+    return sv_recall(truth, sv_rows(sv_path))

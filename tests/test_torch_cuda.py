@@ -655,3 +655,49 @@ def test_cli_run_rescue_profile_on_cuda(cuda, tmp_path):
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     for kernel in ("extend_kernel", "banded_dir_kernel", "traceback_kernel"):
         assert any(kernel in n for n in names), kernel
+
+
+def test_entry_on_cuda_matches_plain(cuda):
+    """entry()'s fn(*args) on the card: K1 in one launch (LQ 64, the
+    first query-length bin), equal to its plain version."""
+    from seeksv_tpu_torch.entry import entry
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    n0 = ext.LAUNCHES["extend_right"]
+    got = fn(*args)
+    want = ext.extend_batch_resident_plain(*args, 1 << 16, 64, 128, False)
+    torch.cuda.synchronize()
+    assert ext.LAUNCHES["extend_right"] == n0 + ext.bin_launches(64) == n0 + 1
+    for k in ext.KEYS:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("stream", [True, False], ids=["stream", "whole"])
+def test_bench_scale_run_ours_on_cuda_matches_force_host(cuda, tmp_path,
+                                                         monkeypatch, stream):
+    """bench_scale.run_ours on a short-read dataset (200 kb, 20x, 100 bp)
+    on the card: the device arm extends on K1 in the first query-length
+    bin, and its .sv, .clip.sam and clip streams equal the forced-host
+    arm's."""
+    from seeksv_tpu_torch.scripts import bench_scale
+    from seeksv_tpu_torch.utils.dataset import build_dataset
+    monkeypatch.setenv("HOME", str(tmp_path))
+    root = str(tmp_path / "ds")
+    build_dataset(root, 200_000, 20, 100, 1, 10, False)
+    (tmp_path / "dev").mkdir()
+    (tmp_path / "host").mkdir()
+    _reset(ext.LAUNCHES, tgd.LAUNCHES)
+    _n, st = bench_scale.run_ours(root, str(tmp_path / "dev"), stream=stream,
+                                  chunk_records=7_000)
+    counts = {**ext.LAUNCHES, **tgd.LAUNCHES}
+    bench_scale.run_ours(root, str(tmp_path / "host"), stream=stream,
+                         chunk_records=7_000, force_host=True)
+    assert counts["extend_left"] > 0 and counts["extend_right"] > 0, counts
+    assert st["dispatch"]["chose_device"] and st["dispatch"]["LQ"] <= 128
+    assert st["aligner"]["device_extend_s"] > 0
+    for suffix in ("clip.sam", "sv"):
+        assert (tmp_path / "dev" / f"ours.{suffix}").read_bytes() == \
+            (tmp_path / "host" / f"ours.{suffix}").read_bytes(), suffix
+    for suffix in ("clip.gz", "clip.fq.gz"):
+        assert bench_scale.gz_sha(str(tmp_path / "dev" / f"ours.{suffix}")) \
+            == bench_scale.gz_sha(str(tmp_path / "host" / f"ours.{suffix}"))
