@@ -83,6 +83,7 @@ import torch
 from ..io.fasta import read_fasta
 from ..ops.global_device import TorchDeviceGlobalAligner
 from ..ops.seed_device import OVERFLOW, TorchDeviceSeeder, hit_cap_ladder
+from ..utils import trace
 from .index import ENCODE, KmerIndex
 from .seed_batch import batch_candidates
 from .sw import (MATCH, MISMATCH, PEN_CLIP, extend_batch_np, extend_score,
@@ -466,10 +467,14 @@ class BatchAligner(Aligner):
         self._device_al = None
         self._dga: Optional[TorchDeviceGlobalAligner] = None
         # wall-clock accounting per stage, accumulated across batch_align
-        # calls (what fraction of realignment runs on the device)
+        # calls by the seeksv.engine.* spans (utils/trace.py): the
+        # extension rounds alone (device_ or host_extend_s), the per-job
+        # host loop between them, the finalize and, on its own thread,
+        # the device's share of it
         self.timings: Dict[str, float] = {
             "seed_s": 0.0, "device_extend_s": 0.0, "host_extend_s": 0.0,
-            "finalize_s": 0.0, "device_finalize_s": 0.0}
+            "between_rounds_s": 0.0, "finalize_s": 0.0,
+            "device_finalize_s": 0.0}
 
     @classmethod
     def from_fasta(cls, path: str, k: int = MIN_SEED_LEN, cache: bool = True,
@@ -655,9 +660,9 @@ class BatchAligner(Aligner):
         if self.device_align:
             # the whole front-end on the device
             # (seeksv_tpu/align/engine.py:569-589)
-            t0 = time.perf_counter()
-            dres = self._device_aligner().align_jobs(strand_reads)
-            self.timings["device_extend_s"] += time.perf_counter() - t0
+            with trace.span("seeksv.engine.extend", self.timings,
+                            "device_extend_s"):
+                dres = self._device_aligner().align_jobs(strand_reads)
             if dres is None:
                 OVERFLOW["to_host"] += 1   # a chunk beyond the largest cap
         if dres is not None:
@@ -669,24 +674,23 @@ class BatchAligner(Aligner):
         else:
             self._seed_and_extend(strand_reads, per_read_codes,
                                   results_by_read, force_device, force_host)
-        t0 = time.perf_counter()
-        out = self._finalize_many(per_read_codes, seqs, results_by_read,
-                                  force_device=force_device,
-                                  force_host=force_host)
-        self.timings["finalize_s"] += time.perf_counter() - t0
-        return out
+        with trace.span("seeksv.engine.finalize", self.timings,
+                        "finalize_s"):
+            return self._finalize_many(per_read_codes, seqs,
+                                       results_by_read,
+                                       force_device=force_device,
+                                       force_host=force_host)
 
     def _seed_and_extend(self, strand_reads, per_read_codes, results_by_read,
                          force_device: bool, force_host: bool) -> None:
         """Seeding (on the host, or on the device with device_seed), then
         both extension rounds (seeksv_tpu/align/engine.py:590-808)."""
         idx = self.idx
-        t0 = time.perf_counter()
-        if self.device_seed:
-            cands = self._device_candidates(strand_reads)
-        else:
-            cands = batch_candidates(idx, strand_reads)
-        self.timings["seed_s"] += time.perf_counter() - t0
+        with trace.span("seeksv.engine.seed", self.timings, "seed_s"):
+            if self.device_seed:
+                cands = self._device_candidates(strand_reads)
+            else:
+                cands = batch_candidates(idx, strand_reads)
         jobs = []  # (read_i, strand, diag, q_start, anchor_len, tid)
         for job_i, cand_list in cands.items():
             ri, strand = divmod(job_i, 2)
@@ -766,24 +770,27 @@ class BatchAligner(Aligner):
             run = self._mesh_round(LQ, LT)
         else:
             run = self._device_round(LQ, LT)
-        t_ext = time.perf_counter()
-        left = run(lq, lqlen, lstart, ltlen, h0, True)
-        qb = np.zeros(n_jobs, np.int64)
-        rb = np.zeros(n_jobs, np.int64)
-        h0r = np.zeros(n_jobs, np.int32)
-        for k, (ri, strand, n, ref_anchor, q_start, anchor_len, tid) in \
-                enumerate(meta):
-            h0r[k] = left["max_score"][k]  # bwa sc0 semantics
-            if (left["gscore"][k] <= 0
-                    or left["gscore"][k] <= left["max_score"][k] - PEN_CLIP):
-                qb[k] = q_start - left["qle"][k]
-                rb[k] = ref_anchor - left["tle"][k]
-            else:
-                qb[k] = 0
-                rb[k] = ref_anchor - left["gtle"][k]
-        right = run(rq, rqlen, rstart, rtlen, h0r, False)
-        self.timings["host_extend_s" if use_host else "device_extend_s"] += \
-            time.perf_counter() - t_ext
+        ext_key = "host_extend_s" if use_host else "device_extend_s"
+        with trace.span("seeksv.engine.extend", self.timings, ext_key):
+            left = run(lq, lqlen, lstart, ltlen, h0, True)
+        with trace.span("seeksv.engine.between_rounds", self.timings,
+                        "between_rounds_s"):
+            qb = np.zeros(n_jobs, np.int64)
+            rb = np.zeros(n_jobs, np.int64)
+            h0r = np.zeros(n_jobs, np.int32)
+            for k, (ri, strand, n, ref_anchor, q_start, anchor_len,
+                    tid) in enumerate(meta):
+                h0r[k] = left["max_score"][k]  # bwa sc0 semantics
+                if (left["gscore"][k] <= 0
+                        or left["gscore"][k]
+                        <= left["max_score"][k] - PEN_CLIP):
+                    qb[k] = q_start - left["qle"][k]
+                    rb[k] = ref_anchor - left["tle"][k]
+                else:
+                    qb[k] = 0
+                    rb[k] = ref_anchor - left["gtle"][k]
+        with trace.span("seeksv.engine.extend", self.timings, ext_key):
+            right = run(rq, rqlen, rstart, rtlen, h0r, False)
         for k, (ri, strand, n, ref_anchor, q_start, anchor_len, tid) in \
                 enumerate(meta):
             q_end0 = q_start + anchor_len
@@ -956,17 +963,19 @@ class BatchAligner(Aligner):
         failure: List[Exception] = []
         th = None
         if dev_rows:
+            token = trace.handoff()
+
             def _run_dev():
-                t0 = time.perf_counter()
-                try:
-                    r = dga.align_batch([qs[x] for x in dev_rows],
-                                        [ts[x] for x in dev_rows])
-                    dev_res.update((dev_rows[i], v) for i, v in r.items())
-                except Exception as exc:   # raised below, after the join
-                    failure.append(exc)
-                finally:
-                    self.timings["device_finalize_s"] += (
-                        time.perf_counter() - t0)
+                with trace.adopt(token), \
+                        trace.span("seeksv.engine.device_finalize",
+                                   self.timings, "device_finalize_s"):
+                    try:
+                        r = dga.align_batch([qs[x] for x in dev_rows],
+                                            [ts[x] for x in dev_rows])
+                        dev_res.update((dev_rows[i], v)
+                                       for i, v in r.items())
+                    except Exception as exc:   # raised below, after join
+                        failure.append(exc)
             th = threading.Thread(target=_run_dev)
             th.start()
         dev_set = set(dev_rows)
@@ -1063,50 +1072,60 @@ def align_paired_fastq_to_sam(ref_fa: str, fq1: str, fq2: str, out_sam: str,
     BatchAligner, "dispatch": each end's last_dispatch}."""
     device = torch.device(device)
     stages = {}
-    t0 = time.perf_counter()
     from ..io import native
-    if device.type == "cuda" and not native.available():
-        raise RuntimeError(
-            "the native host library did not build or load; the CUDA path "
-            f"needs it: {native.LOAD_ERROR}")
-    stages["native"] = time.perf_counter() - t0
-    t = time.perf_counter()
-    if index is None:
-        index = Aligner.from_fasta(ref_fa, k=min_seed_len).idx
-    aligner = BatchAligner(index, device=device)
-    stages["index"] = time.perf_counter() - t
-    t = time.perf_counter()
-    names1, seqs1, quals1 = _read_named_fastq(fq1)
-    names2, seqs2, quals2 = _read_named_fastq(fq2)
-    if len(seqs1) != len(seqs2):
-        raise ValueError(f"paired fastqs differ in length: "
-                         f"{len(seqs1)} vs {len(seqs2)}")
-    stages["read_fq"] = time.perf_counter() - t
-    dispatch = []   # each end's last_dispatch (None: no extension job)
-    t = time.perf_counter()
-    ends = []
-    for seqs in (seqs1, seqs2):
-        aligner.last_dispatch = None
-        ends.append(aligner.batch_align(seqs, force_host=force_host))
-        dispatch.append(aligner.last_dispatch)
+    with trace.driver_pass(stages, "total"):
+        with trace.span("seeksv.stage.native", stages, "native"):
+            if device.type == "cuda" and not native.available():
+                raise RuntimeError(
+                    "the native host library did not build or load; the "
+                    f"CUDA path needs it: {native.LOAD_ERROR}")
+        with trace.span("seeksv.stage.index", stages, "index"):
+            if index is None:
+                index = Aligner.from_fasta(ref_fa, k=min_seed_len).idx
+            aligner = BatchAligner(index, device=device)
+        with trace.span("seeksv.stage.read_fq", stages, "read_fq"):
+            names1, seqs1, quals1 = _read_named_fastq(fq1)
+            names2, seqs2, quals2 = _read_named_fastq(fq2)
+            if len(seqs1) != len(seqs2):
+                raise ValueError(f"paired fastqs differ in length: "
+                                 f"{len(seqs1)} vs {len(seqs2)}")
+        dispatch = []   # each end's last_dispatch (None: no extension job)
+        with trace.span("seeksv.stage.align", stages, "align"):
+            ends = []
+            for seqs in (seqs1, seqs2):
+                aligner.last_dispatch = None
+                ends.append(aligner.batch_align(seqs, force_host=force_host))
+                dispatch.append(aligner.last_dispatch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        with trace.span("seeksv.stage.write_sam", stages, "write_sam"):
+            _write_paired_sam(aligner, out_sam, (names1, names2),
+                              (seqs1, seqs2), (quals1, quals2), ends, times)
+    return {"stages_s": stages, "aligner": aligner, "dispatch": dispatch}
+
+
+def _pair_isize(x: Alignment, y: Alignment):
+    """FR insert size (fragment length) or None if not FR/same-tid."""
+    if not (x.mapped and y.mapped) or x.tid != y.tid:
+        return None
+    fwd, rev = (x, y) if x.strand == 0 else (y, x)
+    if fwd.strand != 0 or rev.strand != 1:
+        return None
+    end = rev.pos + _ref_span_of(rev.cigar)
+    isz = end - fwd.pos
+    return isz if isz > 0 and fwd.pos <= rev.pos else None
+
+
+def _write_paired_sam(aligner, out_sam: str, names, seqs, quals, ends,
+                      times: int) -> None:
+    """The paired SAM of align_paired_fastq_to_sam: the insert-size model
+    from FR both-mapped pairs, then both ends' records with pair flags
+    and mate fields."""
+    names1, names2 = names
+    seqs1, seqs2 = seqs
+    quals1, quals2 = quals
     a1, a2 = ends
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stages["align"] = time.perf_counter() - t
-    t = time.perf_counter()
-
-    def pair_isize(x: Alignment, y: Alignment):
-        """FR insert size (fragment length) or None if not FR/same-tid."""
-        if not (x.mapped and y.mapped) or x.tid != y.tid:
-            return None
-        fwd, rev = (x, y) if x.strand == 0 else (y, x)
-        if fwd.strand != 0 or rev.strand != 1:
-            return None
-        end = rev.pos + _ref_span_of(rev.cigar)
-        isz = end - fwd.pos
-        return isz if isz > 0 and fwd.pos <= rev.pos else None
-
-    ins = [v for v in (pair_isize(x, y) for x, y in zip(a1, a2))
+    ins = [v for v in (_pair_isize(x, y) for x, y in zip(a1, a2))
            if v is not None]
     if ins:
         mean = int(sum(ins) // len(ins))
@@ -1123,7 +1142,7 @@ def align_paired_fastq_to_sam(ref_fa: str, fq1: str, fq2: str, out_sam: str,
         out.write("@PG\tID:seeksv-tpu-aln\tPN:seeksv-tpu\n")
         for i in range(len(seqs1)):
             x, y = a1[i], a2[i]
-            isz = pair_isize(x, y)
+            isz = _pair_isize(x, y)
             proper = isz is not None and lo <= isz <= hi and ins
             for (qn, seq, qual, a, mate, first) in (
                     (names1[i], seqs1[i], quals1[i], x, y, True),
@@ -1163,9 +1182,6 @@ def align_paired_fastq_to_sam(ref_fa: str, fq1: str, fq2: str, out_sam: str,
                 out.write(f"{qn}\t{flag}\t{rname}\t{pos}\t{mapq}\t{cig}\t"
                           f"{rnext}\t{pnext}\t{tlen}\t{seq_s}\t{qual_s}"
                           f"{tags}\n")
-    stages["write_sam"] = time.perf_counter() - t
-    stages["total"] = time.perf_counter() - t0
-    return {"stages_s": stages, "aligner": aligner, "dispatch": dispatch}
 
 
 def align_fastq_to_sam(ref_fa: str, reads_fq: str, out_sam: str,

@@ -30,7 +30,9 @@ for the kernels' plain versions).  ``aln -2`` runs both ends through the
 device aligner; single-end ``aln`` is the host aligner, as in the
 reference.  ``run`` on a CUDA device checks the dispatch calibration's
 fingerprint first (``--no-auto-calibrate`` skips the check) and with
-``--profile DIR`` writes a ``torch.profiler`` trace there.
+``--profile DIR`` writes a ``torch.profiler`` trace there, with the
+program's ``seeksv.*`` spans and counters (``utils/trace.py``), for the
+whole-BAM and the ``--stream`` driver alike.
 """
 from __future__ import annotations
 
@@ -134,7 +136,9 @@ def main(argv=None) -> int:
                          "measured a break-even")
     pr.add_argument("--rescue", action="store_true")
     pr.add_argument("--profile", default=None, dest="profile_dir",
-                    help="write a torch.profiler trace to this directory")
+                    help="write a torch.profiler trace of the run, with the "
+                         "program's seeksv.* spans and counters, to "
+                         "DIR/<prefix name>.trace.json (also with --stream)")
     pr.add_argument("--no-auto-calibrate", action="store_true",
                     help="skip the dispatch-calibration fingerprint check "
                          "(a stale calibration otherwise re-measures the "
@@ -268,7 +272,7 @@ def main(argv=None) -> int:
             from .pipeline.stream import run_pipeline_streaming
             res = run_pipeline_streaming(args.ref_fa, args.bam, args.prefix,
                                          chunk_records=args.chunk_records,
-                                         **kw)
+                                         profile_dir=args.profile_dir, **kw)
         else:
             from .pipeline.driver import run_pipeline
             res = run_pipeline(args.ref_fa, args.bam, args.prefix,

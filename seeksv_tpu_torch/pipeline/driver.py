@@ -5,7 +5,7 @@ in-framework call — no external aligner, no awk.
 Counterpart of ``seeksv_tpu/pipeline/driver.py``: read_bam -> getclip ->
 realign_clips -> getsv [-> somatic], with ``realign_clips`` driving a
 ``BatchAligner`` on an explicit device, and ``profile_dir`` tracing the
-span from read_bam through getsv with ``torch.profiler``.
+call with ``torch.profiler``.  The stages are ``utils/trace.py`` spans.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from ..align.engine import _RC, Aligner, BatchAligner, _cigar_str
 from ..align.index import KmerIndex
 from ..io import native
 from ..io.bam import read_bam
+from ..utils import trace
 from .getclip import getclip
 from .getsv import getsv
 from .somatic import somatic, somatic_filter
@@ -114,13 +115,14 @@ def realign_clips(ref_fa: str, clip_fq: str, out_sam: str,
     """chunk_reads: when set, the clip fastq streams through in chunks
     of that many reads (bounded-memory realign for the streaming
     pipelines)."""
-    t0 = time.perf_counter()
-    if aligner is None:
-        aligner = BatchAligner.from_fasta(ref_fa)
     # full stage accounting: aligner.timings must sum to the realign
     # stage wall
+    load = {}
+    with trace.span("seeksv.engine.index_load", load, "s"):
+        if aligner is None:
+            aligner = BatchAligner.from_fasta(ref_fa)
     aligner.timings["index_load_s"] = \
-        aligner.timings.get("index_load_s", 0.0) + time.perf_counter() - t0
+        aligner.timings.get("index_load_s", 0.0) + load["s"]
     if device_seed:
         aligner.device_seed = True
     if device_align:
@@ -131,22 +133,17 @@ def realign_clips(ref_fa: str, clip_fq: str, out_sam: str,
             for seqs, quals in _iter_fastq_chunks(clip_fq, chunk_reads):
                 alns = aligner.batch_align(seqs, force_device=force_device,
                                            force_host=force_host)
-                t0 = time.perf_counter()
-                write_sam_records(aligner, seqs, quals, alns, out)
-                aligner.timings["write_sam_s"] = \
-                    aligner.timings.get("write_sam_s", 0.0) \
-                    + time.perf_counter() - t0
+                with trace.span("seeksv.engine.write_sam", aligner.timings,
+                                "write_sam_s"):
+                    write_sam_records(aligner, seqs, quals, alns, out)
         return aligner
-    t0 = time.perf_counter()
-    seqs, quals = _read_fastq(clip_fq)
-    aligner.timings["read_fq_s"] = \
-        aligner.timings.get("read_fq_s", 0.0) + time.perf_counter() - t0
+    with trace.span("seeksv.engine.read_fq", aligner.timings, "read_fq_s"):
+        seqs, quals = _read_fastq(clip_fq)
     alns = aligner.batch_align(seqs, force_device=force_device,
                                force_host=force_host)
-    t0 = time.perf_counter()
-    write_sam(aligner, seqs, quals, alns, out_sam)
-    aligner.timings["write_sam_s"] = \
-        aligner.timings.get("write_sam_s", 0.0) + time.perf_counter() - t0
+    with trace.span("seeksv.engine.write_sam", aligner.timings,
+                    "write_sam_s"):
+        write_sam(aligner, seqs, quals, alns, out_sam)
     return aligner
 
 
@@ -154,15 +151,14 @@ def native_stage(device: torch.device, stages: dict) -> None:
     """Build and load the native host library once, timed as its own
     stage (a first build takes seconds that are no part of read_bam); on
     a CUDA device the library must load."""
-    t = time.perf_counter()
-    if not native.available() and device.type == "cuda":
-        raise RuntimeError(
-            "the native host library did not build or load; the CUDA "
-            f"path needs it: {native.LOAD_ERROR}")
-    stages["native"] = time.perf_counter() - t
+    with trace.span("seeksv.stage.native", stages, "native"):
+        if not native.available() and device.type == "cuda":
+            raise RuntimeError(
+                "the native host library did not build or load; the CUDA "
+                f"path needs it: {native.LOAD_ERROR}")
 
 
-def _profiled(profile_dir: Optional[str], device: torch.device):
+def profiled(profile_dir: Optional[str], device: torch.device):
     """A torch.profiler context over CPU and, on a CUDA device, CUDA
     activity; a null context without profile_dir."""
     if not profile_dir:
@@ -172,6 +168,22 @@ def _profiled(profile_dir: Optional[str], device: torch.device):
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     return profile(activities=acts)
+
+
+def export_profile(prof, profile_dir: Optional[str], prefix: str,
+                   stages: dict, log) -> None:
+    """Write a finished ``profiled`` trace to
+    ``{profile_dir}/{basename(prefix)}.trace.json`` (nothing without
+    one), timed as the ``profile_export`` stage."""
+    if prof is None:
+        return
+    with trace.span("seeksv.stage.profile_export", stages,
+                    "profile_export"):
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir,
+                            f"{os.path.basename(prefix)}.trace.json")
+        prof.export_chrome_trace(path)
+    log(f"profile trace -> {path}")
 
 
 def run_pipeline(ref_fa: str, bam: str, prefix: str, *, device="cuda",
@@ -189,70 +201,62 @@ def run_pipeline(ref_fa: str, bam: str, prefix: str, *, device="cuda",
     native host kernels.  rescue: getsv writes the unmapped clipped
     sequences to ``{prefix}.unmapped.clip.fq`` (``getsv --rescue``).
     filtered_out: a text stream that takes getsv's filtered candidates.
-    profile_dir: trace read_bam through getsv with ``torch.profiler``
-    (CPU and, on a CUDA device, CUDA activity) and write the Chrome trace
-    to ``{profile_dir}/{basename(prefix)}.trace.json``; where the
+    profile_dir: trace the whole call with ``torch.profiler`` (CPU and,
+    on a CUDA device, CUDA activity), the program's spans and counters
+    with it (utils/trace.py), and write the Chrome trace to
+    ``{profile_dir}/{basename(prefix)}.trace.json``; where the
     reference's ``try/except`` runs on without a trace when the profiler
     fails to start, this raises.  device_seed / device_align: the device
     front-ends of ``run --device-seed`` / ``--device-align`` (seeding on
     the device; or seeding, window gather and both extension rounds).
     index: a prebuilt k-mer index of ``ref_fa``
     (else built, or loaded from the port's own ~/.cache/seeksv_tpu_torch
-    cache).  Returns {"stages_s": wall seconds per stage, "aligner": the
-    BatchAligner (its .timings split the realign stage)}.
+    cache).  Returns {"stages_s": wall seconds per stage (each the span
+    ``seeksv.stage.<key>``; ``total`` the call's ``seeksv.pass``),
+    "aligner": the BatchAligner (its .timings split the realign stage)}.
 
     On a CUDA device the native host library must load (the finalize
     batching runs beside the card through it): else this raises."""
     device = torch.device(device)
     stages = {}
     t0 = time.perf_counter()
-    native_stage(device, stages)
-    with _profiled(profile_dir, device) as prof:
-        t = time.perf_counter()
-        recs = read_bam(bam)
-        stages["read_bam"] = time.perf_counter() - t
+    with profiled(profile_dir, device) as prof, \
+            trace.driver_pass(stages, "total"):
+        native_stage(device, stages)
+        with trace.span("seeksv.stage.read_bam", stages, "read_bam"):
+            recs = read_bam(bam)
         log(f"[{stages['read_bam']:.2f}s] decoded {recs.n} records")
-        t = time.perf_counter()
-        getclip(bam, prefix, recs=recs)
-        stages["getclip"] = time.perf_counter() - t
-        t = time.perf_counter()
-        if index is None:
-            index = Aligner.from_fasta(ref_fa).idx
-        aligner = BatchAligner(index, device=device)
-        stages["index"] = time.perf_counter() - t
-        t = time.perf_counter()
-        realign_clips(ref_fa, f"{prefix}.clip.fq.gz", f"{prefix}.clip.sam",
-                      aligner=aligner, device_seed=device_seed,
-                      device_align=device_align, force_host=force_host)
-        if aligner.device.type == "cuda":
-            torch.cuda.synchronize(aligner.device)
-        stages["realign"] = time.perf_counter() - t
+        with trace.span("seeksv.stage.getclip", stages, "getclip"):
+            getclip(bam, prefix, recs=recs)
+        with trace.span("seeksv.stage.index", stages, "index"):
+            if index is None:
+                index = Aligner.from_fasta(ref_fa).idx
+            aligner = BatchAligner(index, device=device)
+        with trace.span("seeksv.stage.realign", stages, "realign"):
+            realign_clips(ref_fa, f"{prefix}.clip.fq.gz",
+                          f"{prefix}.clip.sam", aligner=aligner,
+                          device_seed=device_seed, device_align=device_align,
+                          force_host=force_host)
+            if aligner.device.type == "cuda":
+                torch.cuda.synchronize(aligner.device)
         log(f"[{time.perf_counter() - t0:.2f}s] realignment done")
-        t = time.perf_counter()
-        getsv(f"{prefix}.clip.sam", bam, f"{prefix}.clip.gz",
-              f"{prefix}.sv", f"{prefix}.unmapped.clip.fq", recs=recs,
-              rescue=rescue, filtered_out=filtered_out or io.StringIO(),
-              log=log)
-        stages["getsv"] = time.perf_counter() - t
+        with trace.span("seeksv.stage.getsv", stages, "getsv"):
+            getsv(f"{prefix}.clip.sam", bam, f"{prefix}.clip.gz",
+                  f"{prefix}.sv", f"{prefix}.unmapped.clip.fq", recs=recs,
+                  rescue=rescue, filtered_out=filtered_out or io.StringIO(),
+                  log=log)
         log(f"[{time.perf_counter() - t0:.2f}s] getsv done -> {prefix}.sv")
-    if prof is not None:
-        t = time.perf_counter()
-        os.makedirs(profile_dir, exist_ok=True)
-        trace = os.path.join(profile_dir,
-                             f"{os.path.basename(prefix)}.trace.json")
-        prof.export_chrome_trace(trace)
-        stages["profile_export"] = time.perf_counter() - t
-        log(f"profile trace -> {trace}")
-    if normal_bam:
-        t = time.perf_counter()
-        nrecs = read_bam(normal_bam)
-        nprefix = f"{prefix}.normal"
-        getclip(normal_bam, nprefix, recs=nrecs)
-        somatic(normal_bam, f"{nprefix}.clip.gz", f"{prefix}.sv",
-                f"{prefix}.somatic.temp.sv", recs=nrecs)
-        somatic_filter(f"{prefix}.somatic.temp.sv", f"{prefix}.somatic.sv")
-        stages["somatic"] = time.perf_counter() - t
-        log(f"[{time.perf_counter() - t0:.2f}s] somatic done -> "
-            f"{prefix}.somatic.sv")
-    stages["total"] = time.perf_counter() - t0
+        if normal_bam:
+            with trace.span("seeksv.stage.somatic", stages, "somatic"):
+                with trace.span("seeksv.somatic.scan"):
+                    nrecs = read_bam(normal_bam)
+                    nprefix = f"{prefix}.normal"
+                    getclip(normal_bam, nprefix, recs=nrecs)
+                somatic(normal_bam, f"{nprefix}.clip.gz", f"{prefix}.sv",
+                        f"{prefix}.somatic.temp.sv", recs=nrecs)
+                somatic_filter(f"{prefix}.somatic.temp.sv",
+                               f"{prefix}.somatic.sv")
+            log(f"[{time.perf_counter() - t0:.2f}s] somatic done -> "
+                f"{prefix}.somatic.sv")
+    export_profile(prof, profile_dir, prefix, stages, log)
     return {"stages_s": stages, "aligner": aligner}

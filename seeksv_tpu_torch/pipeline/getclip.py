@@ -37,6 +37,7 @@ from ..io.bam import (BamRecords, FDUP, FMUNMAP, FREAD1, FUNMAP, OP_H, OP_S,
                       read_bam)
 from ..ops import cigar as cg
 from ..ops.matchrate import match_rate_begin, match_rate_end
+from ..utils import trace
 
 LEFT_CLIPPED = True
 RIGHT_CLIPPED = False
@@ -191,6 +192,8 @@ class GetclipStream:
     reference's streaming loop (ref: clip_reads.h:363-446), with the
     chromosome flush happening at real tid changes only (slab boundaries
     inside a chromosome do NOT flush)."""
+
+    SPAN = "seeksv.scan.getclip"
 
     def __init__(self, prefix: str, threshold: float = 0.85,
                  min_mapq: int = 20, save_low_quality: bool = False,
@@ -366,11 +369,12 @@ class GetclipStream:
         return {k: v[keep] for k, v in rows.items()}
 
     def close(self) -> None:
-        self._flush(self.last_tid)
-        self.soft_out.close()
-        self.fq_out.close()
-        self.un1.close()
-        self.un2.close()
+        with trace.span("seeksv.scan.flush"):
+            self._flush(self.last_tid)
+            self.soft_out.close()
+            self.fq_out.close()
+            self.un1.close()
+            self.un2.close()
 
 
 def getclip(bam_path: str, prefix: str, threshold: float = 0.85,

@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 from ..io.bam import BamRecords, read_bam
 from ..ops.matchrate import (match_rate_begin, match_rate_end, revcomp,
                              seed_containment)
+from ..utils import trace
 from .getsv import DiscordantCounter, calculate_insert_size, fmt_g
 
 
@@ -121,8 +122,9 @@ def somatic(normal_bam: str, normal_clip_gz: str, tumor_sv: str,
         clip3 = clip5 = counter = None
         mean = dev = 0
     else:
-        clip3, clip5 = read_clip_reads(normal_clip_gz,
-                                       min_len_of_clipped_seq)
+        with trace.span("seeksv.somatic.read_clips"):
+            clip3, clip5 = read_clip_reads(normal_clip_gz,
+                                           min_len_of_clipped_seq)
         if mean_dev is not None:
             mean, dev = mean_dev
             if recs is None and stats is not None:
@@ -139,9 +141,24 @@ def somatic(normal_bam: str, normal_clip_gz: str, tumor_sv: str,
             if read_pair_used >= 100_000:
                 mean, dev = calculate_insert_size(recs, min_mapq,
                                                   read_pair_used)
-        counter = DiscordantCounter(recs, min_mapq, mean, dev, times)
+        with trace.span("seeksv.somatic.discordant"):
+            counter = DiscordantCounter(recs, min_mapq, mean, dev, times)
 
     fout = open(out_path, "w") if out_path is not None else None
+    try:
+        with trace.span("seeksv.somatic.lookup"):
+            _somatic_rows(tumor_sv, fout, clip3, clip5, counter, mean,
+                          min_map_rate, offset, collect_triples, use_triples)
+    finally:
+        if fout is not None:
+            fout.close()
+
+
+def _somatic_rows(tumor_sv: str, fout, clip3, clip5, counter, mean: int,
+                  min_map_rate: float, offset: int, collect_triples,
+                  use_triples) -> None:
+    """somatic()'s pass over the tumour rows: each row's normal-side
+    lookups, written to fout (or collected)."""
     _row_ids: list = []
     with open(tumor_sv) as fin:
         for line in fin:
@@ -349,14 +366,13 @@ def somatic(normal_bam: str, normal_clip_gz: str, tumor_sv: str,
                     + f"\t{fmt_g(up_rate)}\t{fmt_g(down_rate)}\t{up_cigar}\t"
                     f"{down_cigar}\t{up_seq.decode()}\t{down_seq.decode()}\t"
                     f"{nleft}\t{nright}\t{nab}\n")
-    if fout is not None:
-        fout.close()
 
 
 def somatic_filter(temp_sv_path: str, out_path: str) -> None:
     """The awk post-filter (ref example/seeksv.somatic.sh:6): keep rows
     where all three control columns are 0."""
-    with open(temp_sv_path) as fin, open(out_path, "w") as fout:
+    with trace.span("seeksv.somatic.filter"), open(temp_sv_path) as fin, \
+            open(out_path, "w") as fout:
         for line in fin:
             if line.startswith("@"):
                 fout.write(line)

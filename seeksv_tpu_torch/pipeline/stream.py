@@ -40,7 +40,8 @@ from ..align.engine import Aligner, BatchAligner
 from ..align.index import KmerIndex
 from ..io.bam import (BamRecords, FDUP, FPAIRED, FPROPER_PAIR, OP_H,
                       read_bam_chunks)
-from .driver import native_stage, realign_clips
+from ..utils import trace
+from .driver import export_profile, native_stage, profiled, realign_clips
 from .getclip import GetclipStream
 from .getsv import depth_segments, getsv
 from .somatic import somatic, somatic_filter
@@ -117,6 +118,8 @@ class StreamStats:
     """Single-pass accumulator over BamRecords slabs for everything getsv
     and somatic need from the original BAM (see module docstring).
     process() every slab in file order, then finalize() once."""
+
+    SPAN = "seeksv.scan.stats"
 
     def __init__(self, min_mapq: int, read_pair_used: int):
         self.min_mapq = min_mapq
@@ -257,71 +260,79 @@ def scan_bam(bam_path: str, chunk_records: int,
 
     lazy_seq=True skips base decode for unclipped fully-mapped records
     (GetclipStream/StreamStats never read those bases; pass False for
-    consumers that read every record's seq/qual)."""
+    consumers that read every record's seq/qual).
+
+    Spans (utils/trace.py): ``seeksv.scan.decode`` a slab on the thread
+    that decodes, ``seeksv.scan.wait`` the consumers' wait for a slab,
+    a consumer's ``SPAN`` (else ``seeksv.scan.<class name>``) a slab,
+    ``seeksv.scan.release`` the drop of a slab; the counter
+    ``scan.bam_bytes`` the compressed bytes it decodes."""
     import os
     # record-count estimate from the compressed size (~23 B/record at
     # 100 bp reads): lets accumulators pre-size instead of doubling
     try:
-        est = os.path.getsize(bam_path) // 16
+        size = os.path.getsize(bam_path)
     except OSError:
-        est = 0
+        size = 0
+    trace.count("scan.bam_bytes", size)
+    est = size // 16
     if est:
         for cns in consumers:
             h = getattr(cns, "reserve_hint", None)
             if h is not None:
                 h(est)
+    names = [getattr(c, "SPAN", f"seeksv.scan.{type(c).__name__.lower()}")
+             for c in consumers]
     if not prefetch:
-        for recs in read_bam_chunks(bam_path, chunk_records,
-                                    lazy_seq=lazy_seq):
-            for cns in consumers:
-                cns.process(recs)
-        return
+        chunks = read_bam_chunks(bam_path, chunk_records, lazy_seq=lazy_seq)
+        while True:
+            with trace.span("seeksv.scan.decode"):
+                recs = next(chunks, None)
+            if recs is None:
+                return
+            for cns, name in zip(consumers, names):
+                with trace.span(name):
+                    cns.process(recs)
     import queue
     import threading
     q: "queue.Queue" = queue.Queue(maxsize=1)
     _SENTINEL = object()
     stop = threading.Event()
 
+    token = trace.handoff()
+
     def producer():
-        try:
-            for recs in read_bam_chunks(bam_path, chunk_records,
-                                        lazy_seq=lazy_seq):
-                if stop.is_set():  # consumer raised: abandon the decode
-                    return
-                q.put(recs)
-            q.put(_SENTINEL)
-        except BaseException as e:  # surfaced in the consumer loop
-            q.put(e)
+        with trace.adopt(token):
+            try:
+                chunks = read_bam_chunks(bam_path, chunk_records,
+                                         lazy_seq=lazy_seq)
+                while True:
+                    with trace.span("seeksv.scan.decode"):
+                        recs = next(chunks, None)
+                    if recs is None:
+                        break
+                    if stop.is_set():  # consumer raised: abandon the decode
+                        return
+                    q.put(recs)
+                q.put(_SENTINEL)
+            except BaseException as e:  # surfaced in the consumer loop
+                q.put(e)
 
     th = threading.Thread(target=producer, daemon=True)
     th.start()
-    # SEEKSV_STREAM_PROFILE=1: per-consumer + queue-wait seconds on
-    # stderr at end of pass (decode wall hides under consumer work when
-    # prefetch overlaps well; queue-wait ~= non-overlapped decode)
-    prof = os.environ.get("SEEKSV_STREAM_PROFILE")
-    t_wait = 0.0
-    t_cons = [0.0] * len(consumers)
     try:
-        import time as _time
         while True:
-            t0 = _time.perf_counter()
-            item = q.get()
-            t_wait += _time.perf_counter() - t0
+            with trace.span("seeksv.scan.wait"):
+                item = q.get()
             if item is _SENTINEL:
                 break
             if isinstance(item, BaseException):
                 raise item
-            for ci, cns in enumerate(consumers):
-                t0 = _time.perf_counter()
-                cns.process(item)
-                t_cons[ci] += _time.perf_counter() - t0
-            del item  # drop the slab before blocking on the next one
-        if prof:
-            import sys as _sys
-            print(f"# scan_bam profile: queue_wait={t_wait:.2f}s " +
-                  " ".join(f"{type(c).__name__}={t:.2f}s"
-                           for c, t in zip(consumers, t_cons)),
-                  file=_sys.stderr)
+            for cns, name in zip(consumers, names):
+                with trace.span(name):
+                    cns.process(item)
+            with trace.span("seeksv.scan.release"):
+                del item  # drop the slab before blocking on the next one
     finally:
         # stop + unblock a producer stuck on put() if the consumer raised
         stop.set()
@@ -342,58 +353,61 @@ def run_pipeline_streaming(ref_fa: str, bam: str, prefix: str, *,
                            device_align: bool = False,
                            index: Optional[KmerIndex] = None,
                            filtered_out=None,
+                           profile_dir: Optional[str] = None,
                            log=lambda *a: None) -> dict:
     """Write the outputs of ``run_pipeline`` with bounded-memory ingestion.
-    Arguments as in ``pipeline.driver.run_pipeline`` (no force_host,
-    rescue or profile_dir, as in the reference's streaming driver;
-    filtered_out, a text stream, takes getsv's filtered candidates),
-    plus chunk_records
+    Arguments as in ``pipeline.driver.run_pipeline`` (no force_host or
+    rescue, as in the reference's streaming driver; filtered_out, a text
+    stream, takes getsv's filtered candidates), plus chunk_records
     (records per decode slab), min_mapq and read_pair_used (the getsv
-    statistics' settings, the reference's defaults).  Returns
-    {"stages_s", "aligner"} as ``run_pipeline`` does."""
+    statistics' settings, the reference's defaults).  profile_dir: trace
+    the whole call with ``torch.profiler`` into
+    ``{profile_dir}/{basename(prefix)}.trace.json``, the program's spans
+    and counters with it (utils/trace.py).  Returns {"stages_s",
+    "aligner"} as ``run_pipeline`` does."""
     device = torch.device(device)
     stages = {}
     t0 = time.perf_counter()
-    native_stage(device, stages)
-    t = time.perf_counter()
-    gstream = GetclipStream(prefix)
-    stats = StreamStats(min_mapq, read_pair_used)
-    scan_bam(bam, chunk_records, [gstream, stats])
-    gstream.close()
-    stages["scan_bam"] = time.perf_counter() - t
-    log(f"[{time.perf_counter() - t0:.2f}s] streaming getclip+stats done "
-        f"({stats.n:,} records)")
-    t = time.perf_counter()
-    if index is None:
-        index = Aligner.from_fasta(ref_fa).idx
-    aligner = BatchAligner(index, device=device)
-    stages["index"] = time.perf_counter() - t
-    t = time.perf_counter()
-    realign_clips(ref_fa, f"{prefix}.clip.fq.gz", f"{prefix}.clip.sam",
-                  aligner=aligner, device_seed=device_seed,
-                  device_align=device_align, chunk_reads=200_000)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stages["realign"] = time.perf_counter() - t
-    log(f"[{time.perf_counter() - t0:.2f}s] realignment done")
-    t = time.perf_counter()
-    getsv(f"{prefix}.clip.sam", bam, f"{prefix}.clip.gz", f"{prefix}.sv",
-          f"{prefix}.unmapped.clip.fq", stats=stats,
-          filtered_out=filtered_out or io.StringIO(), log=log)
-    stages["getsv"] = time.perf_counter() - t
-    log(f"[{time.perf_counter() - t0:.2f}s] getsv done -> {prefix}.sv")
-    if normal_bam:
-        t = time.perf_counter()
-        nprefix = f"{prefix}.normal"
-        ngstream = GetclipStream(nprefix)
-        nstats = StreamStats(min_mapq, read_pair_used)
-        scan_bam(normal_bam, chunk_records, [ngstream, nstats])
-        ngstream.close()
-        somatic(normal_bam, f"{nprefix}.clip.gz", f"{prefix}.sv",
-                f"{prefix}.somatic.temp.sv", stats=nstats)
-        somatic_filter(f"{prefix}.somatic.temp.sv", f"{prefix}.somatic.sv")
-        stages["somatic"] = time.perf_counter() - t
-        log(f"[{time.perf_counter() - t0:.2f}s] somatic done -> "
-            f"{prefix}.somatic.sv")
-    stages["total"] = time.perf_counter() - t0
+    with profiled(profile_dir, device) as prof, \
+            trace.driver_pass(stages, "total"):
+        native_stage(device, stages)
+        with trace.span("seeksv.stage.scan_bam", stages, "scan_bam"):
+            gstream = GetclipStream(prefix)
+            stats = StreamStats(min_mapq, read_pair_used)
+            scan_bam(bam, chunk_records, [gstream, stats])
+            gstream.close()
+        log(f"[{time.perf_counter() - t0:.2f}s] streaming getclip+stats "
+            f"done ({stats.n:,} records)")
+        with trace.span("seeksv.stage.index", stages, "index"):
+            if index is None:
+                index = Aligner.from_fasta(ref_fa).idx
+            aligner = BatchAligner(index, device=device)
+        with trace.span("seeksv.stage.realign", stages, "realign"):
+            realign_clips(ref_fa, f"{prefix}.clip.fq.gz",
+                          f"{prefix}.clip.sam", aligner=aligner,
+                          device_seed=device_seed, device_align=device_align,
+                          chunk_reads=200_000)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        log(f"[{time.perf_counter() - t0:.2f}s] realignment done")
+        with trace.span("seeksv.stage.getsv", stages, "getsv"):
+            getsv(f"{prefix}.clip.sam", bam, f"{prefix}.clip.gz",
+                  f"{prefix}.sv", f"{prefix}.unmapped.clip.fq", stats=stats,
+                  filtered_out=filtered_out or io.StringIO(), log=log)
+        log(f"[{time.perf_counter() - t0:.2f}s] getsv done -> {prefix}.sv")
+        if normal_bam:
+            with trace.span("seeksv.stage.somatic", stages, "somatic"):
+                nprefix = f"{prefix}.normal"
+                with trace.span("seeksv.somatic.scan"):
+                    ngstream = GetclipStream(nprefix)
+                    nstats = StreamStats(min_mapq, read_pair_used)
+                    scan_bam(normal_bam, chunk_records, [ngstream, nstats])
+                    ngstream.close()
+                somatic(normal_bam, f"{nprefix}.clip.gz", f"{prefix}.sv",
+                        f"{prefix}.somatic.temp.sv", stats=nstats)
+                somatic_filter(f"{prefix}.somatic.temp.sv",
+                               f"{prefix}.somatic.sv")
+            log(f"[{time.perf_counter() - t0:.2f}s] somatic done -> "
+                f"{prefix}.somatic.sv")
+    export_profile(prof, profile_dir, prefix, stages, log)
     return {"stages_s": stages, "aligner": aligner}
