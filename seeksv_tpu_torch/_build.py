@@ -32,8 +32,11 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v"]
 LIB_NAME = "libseeksv_tpu_torch_kernels.so"
-# the native host library: the repo's C++ source, flags as csrc/Makefile
-NATIVE_SRC = os.path.join(os.path.dirname(_PKG), "csrc", "seeksv_native.cpp")
+# the native host library: the repo's C++ source (read only) and the
+# port's streamed BAM decoder, flags as csrc/Makefile
+NATIVE_SRCS = (
+    os.path.join(os.path.dirname(_PKG), "csrc", "seeksv_native.cpp"),
+    os.path.join(CSRC, "bam_stream.cpp"))
 NATIVE_CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall"]
 NATIVE_LIB_NAME = "libseeksv_native.so"
 
@@ -182,9 +185,12 @@ def _cpu_identity() -> str:
 def build_native() -> str:
     """Build the native host library (BAM decode, host extension and
     finalize ladder, seeding, index build) from the repo's C++ source
-    ``csrc/seeksv_native.cpp`` with ``g++``, flags as ``csrc/Makefile``
-    has them, into ``build/seeksv_tpu_torch/native/<hash>/``, and return
-    the library's path.  Nothing is written beside the source.
+    ``csrc/seeksv_native.cpp`` and the port's streamed BAM decoder
+    ``seeksv_tpu_torch/csrc/bam_stream.cpp`` with one ``g++`` call, flags
+    as ``csrc/Makefile`` has them, into
+    ``build/seeksv_tpu_torch/native/<hash>/`` (the hash covers both
+    sources), and return the library's path.  Nothing is written beside
+    the sources.
 
     ``-DUSE_LIBDEFLATE -ldeflate`` is added only where the preprocessor
     finds ``libdeflate.h`` (the Makefile's own probe passes a backslash to
@@ -196,11 +202,13 @@ def build_native() -> str:
     with _lock:
         if native_info["path"]:
             return native_info["path"]
-        if not os.path.exists(NATIVE_SRC):
-            raise RuntimeError(f"native source not found: {NATIVE_SRC}")
+        h = hashlib.sha256()
+        for src in NATIVE_SRCS:
+            if not os.path.exists(src):
+                raise RuntimeError(f"native source not found: {src}")
+            with open(src, "rb") as f:
+                h.update(f.read())
         cxx = os.environ.get("CXX", "g++")
-        with open(NATIVE_SRC, "rb") as f:
-            h = hashlib.sha256(f.read())
         h.update(" ".join([cxx, *NATIVE_CXXFLAGS]).encode())
         h.update(_cpu_identity().encode())
         out_dir = os.path.join(BUILD_ROOT, "native", h.hexdigest()[:16])
@@ -225,7 +233,7 @@ def build_native() -> str:
         tmp = os.path.join(out_dir, f".{NATIVE_LIB_NAME}.{os.getpid()}.tmp")
         cmd = [cxx, *NATIVE_CXXFLAGS,
                *(["-DUSE_LIBDEFLATE"] if deflate else []),
-               "-shared", "-o", tmp, NATIVE_SRC, "-lz", "-lpthread",
+               "-shared", "-o", tmp, *NATIVE_SRCS, "-lz", "-lpthread",
                *(["-ldeflate"] if deflate else [])]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=600)

@@ -1,4 +1,5 @@
-"""ctypes bindings for the native host runtime (csrc/seeksv_native.cpp).
+"""ctypes bindings for the native host runtime (csrc/seeksv_native.cpp,
+and the port's streamed BAM decoder seeksv_tpu_torch/csrc/bam_stream.cpp).
 
 Counterpart of seeksv_tpu/io/native.py.  The library is built at first use
 by ``_build.build_native`` into ``build/seeksv_tpu_torch/native/<hash>/``
@@ -147,6 +148,19 @@ def _load() -> Optional[ctypes.CDLL]:
                         ctypes.POINTER(ctypes.c_uint16), p32,
                         ctypes.POINTER(ctypes.c_int64), pu8, pu8,
                         ctypes.c_int]
+                if hasattr(lib, "seeksv_torch_bam_open"):
+                    lib.seeksv_torch_bam_open.restype = ctypes.c_void_p
+                    lib.seeksv_torch_bam_open.argtypes = [
+                        ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p]
+                    lib.seeksv_torch_bam_next.restype = \
+                        ctypes.POINTER(_BamSoA)
+                    lib.seeksv_torch_bam_next.argtypes = [
+                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
+                    lib.seeksv_torch_bam_release.argtypes = [
+                        ctypes.POINTER(_BamSoA)]
+                    lib.seeksv_torch_bam_counts.argtypes = [
+                        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
+                    lib.seeksv_torch_bam_close.argtypes = [ctypes.c_void_p]
                 if hasattr(lib, "seeksv_bam_open"):
                     lib.seeksv_bam_open.restype = ctypes.c_void_p
                     lib.seeksv_bam_open.argtypes = [
@@ -229,58 +243,75 @@ def library_path() -> Optional[str]:
 
 
 class _Owner:
-    """Keeps the native BamSoA alive while zero-copy views reference it."""
+    """Keeps a native BamSoA alive while zero-copy views reference it, and
+    hands it back (``free``: ``seeksv_bam_free``, or the streamed
+    decoder's ``seeksv_torch_bam_release``) once the last is gone."""
 
-    def __init__(self, lib, handle):
-        self.lib = lib
+    def __init__(self, handle, free):
         self.handle = handle
+        self.free = free
 
     def __del__(self):
         try:
-            self.lib.seeksv_bam_free(self.handle)
+            self.free(self.handle)
         except Exception:
             pass
 
 
-def _view(ptr, n, dtype):
+class _Buffer:
+    """A native buffer as numpy reads it: the array made from it keeps it,
+    and through it the owner, as its base."""
+
+    def __init__(self, ptr, n: int, dtype, owner):
+        self.__array_interface__ = {
+            "data": (ctypes.cast(ptr, ctypes.c_void_p).value, False),
+            "shape": (n,), "typestr": np.dtype(dtype).str, "version": 3}
+        self.owner = owner
+
+
+def _view(ptr, n, dtype, owner):
     if n == 0:
         return np.zeros(0, dtype)
-    return np.ctypeslib.as_array(ptr, shape=(int(n),)).view(dtype)
+    return np.asarray(_Buffer(ptr, int(n), dtype, owner))
 
 
-def _soa_to_records(lib, h, path: str):
-    """Wrap a native BamSoA* handle as a BamRecords (zero-copy views; the
-    _Owner keeps the native buffers alive).  Raises on a set error field."""
+def _soa_to_records(h, path: str, free):
+    """Wrap a native BamSoA* handle as a BamRecords of zero-copy views;
+    every view keeps the handle's _Owner, which hands it to ``free`` when
+    the last view is gone.  Raises on a set error field."""
     from .bam import BamRecords, LazyQnames
 
     s = h.contents
     if s.n == 0 and s.error and s.error != b"":
         err = s.error.decode()
-        lib.seeksv_bam_free(h)
+        free(h)
         raise IOError(f"{path}: {err}")
-    owner = _Owner(lib, h)
+    owner = _Owner(h, free)
     n = int(s.n)
-    qname_off = _view(s.qname_off, n + 1, np.int64)
-    # zero-copy qname blob view (LazyQnames copies per access; the owner
-    # on the BamRecords keeps the native buffer alive)
-    qblob = _view(s.qnames, s.n_qname_total, np.uint8)
-    names_blob = _view(s.ref_names, s.ref_names_len, np.uint8).tobytes()
+
+    def view(ptr, count, dtype):
+        return _view(ptr, count, dtype, owner)
+
+    qname_off = view(s.qname_off, n + 1, np.int64)
+    # zero-copy qname blob view (LazyQnames copies per access)
+    qblob = view(s.qnames, s.n_qname_total, np.uint8)
+    names_blob = view(s.ref_names, s.ref_names_len, np.uint8).tobytes()
     ref_names = [x.decode() for x in names_blob.split(b"\x00") if x]
-    ref_lens = _view(s.ref_lens, s.n_refs, np.int32).tolist()
+    ref_lens = view(s.ref_lens, s.n_refs, np.int32).tolist()
     return BamRecords(
         ref_names=ref_names, ref_lens=[int(x) for x in ref_lens], n=n,
-        flag=_view(s.flag, n, np.int32), tid=_view(s.tid, n, np.int32),
-        pos=_view(s.pos, n, np.int32), mapq=_view(s.mapq, n, np.int32),
-        mtid=_view(s.mtid, n, np.int32), mpos=_view(s.mpos, n, np.int32),
-        isize=_view(s.isize, n, np.int32),
-        l_qseq=_view(s.l_qseq, n, np.int32),
+        flag=view(s.flag, n, np.int32), tid=view(s.tid, n, np.int32),
+        pos=view(s.pos, n, np.int32), mapq=view(s.mapq, n, np.int32),
+        mtid=view(s.mtid, n, np.int32), mpos=view(s.mpos, n, np.int32),
+        isize=view(s.isize, n, np.int32),
+        l_qseq=view(s.l_qseq, n, np.int32),
         qnames=LazyQnames(qblob, qname_off),
-        cig=_view(s.cig, s.n_cig_total, np.uint32),
-        cig_off=_view(s.cig_off, n + 1, np.int64),
-        seq=_view(s.seq, s.n_seq_total, np.uint8),
-        qual=_view(s.qual, s.n_seq_total, np.uint8),
-        seq_off=_view(s.seq_off, n + 1, np.int64),
-        xc=_view(s.xc, n, np.int32),
+        cig=view(s.cig, s.n_cig_total, np.uint32),
+        cig_off=view(s.cig_off, n + 1, np.int64),
+        seq=view(s.seq, s.n_seq_total, np.uint8),
+        qual=view(s.qual, s.n_seq_total, np.uint8),
+        seq_off=view(s.seq_off, n + 1, np.int64),
+        xc=view(s.xc, n, np.int32),
         owner=owner,
     )
 
@@ -297,12 +328,12 @@ def read_bam_native(path: str, n_threads: int = 0, lazy: bool = False):
         h = lib.seeksv_bam_decode_flags(path.encode(), n_threads, 1)
     else:
         h = lib.seeksv_bam_decode(path.encode(), n_threads)
-    return _soa_to_records(lib, h, path)
+    return _soa_to_records(h, path, lib.seeksv_bam_free)
 
 
 def stream_available() -> bool:
     lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_bam_open")
+    return lib is not None and hasattr(lib, "seeksv_torch_bam_open")
 
 
 def iter_bam_chunks_native(path: str, chunk_records: int,
@@ -310,33 +341,45 @@ def iter_bam_chunks_native(path: str, chunk_records: int,
     """Bounded-memory chunked decode: yields BamRecords slabs of up to
     chunk_records records, in file order (the streaming memory contract
     the reference gets from per-chromosome flushes, clip_reads.h:423-446).
-    Peak footprint per chunk = one compressed read window + the
-    decompressed carry + the chunk's SoA buffers.
+
+    The port's streamed decoder (csrc/bam_stream.cpp): its n_threads
+    workers (0: one a core) inflate the compressed windows ahead of the
+    record walk, and a slab's columns are views of a buffer set that goes
+    back to the stream's pool when the last view of the slab is gone.
+    Peak footprint: the windows in flight + one set a slab held.  Slabs,
+    columns and errors are those of the reference's seeksv_bam_next2
+    (tests/test_torch_bam_stream.py).  When the stream closes its counts
+    go to utils/trace.count: ``scan.slabs``, ``scan.slabs_recycled``
+    (slabs written into a set an earlier slab handed back),
+    ``scan.windows`` and ``scan.windows_ready`` (windows inflated before
+    the walk reached them).
 
     lazy_seq=True skips the seq/qual decode for records that are fully
     mapped with no soft-clipped end — valid only when the consumer reads
     bases exclusively from clipped/unmapped records (GetclipStream +
     StreamStats do; the skipped rows are uninitialised)."""
+    from ..utils import trace
     lib = _load()
-    if lib is None or not hasattr(lib, "seeksv_bam_open"):
+    if lib is None or not hasattr(lib, "seeksv_torch_bam_open"):
         raise RuntimeError("native stream reader not built")
     err = ctypes.create_string_buffer(256)
-    s = lib.seeksv_bam_open(path.encode(), n_threads, err)
+    s = lib.seeksv_torch_bam_open(path.encode(), n_threads, err)
     if not s:
         raise IOError(f"{path}: {err.value.decode()}")
-    use2 = lazy_seq and hasattr(lib, "seeksv_bam_next2")
     try:
         while True:
-            if use2:
-                h = lib.seeksv_bam_next2(s, chunk_records, 1)
-            else:
-                h = lib.seeksv_bam_next(s, chunk_records)
-            recs = _soa_to_records(lib, h, path)
+            h = lib.seeksv_torch_bam_next(s, chunk_records, int(lazy_seq))
+            recs = _soa_to_records(h, path, lib.seeksv_torch_bam_release)
             if recs.n == 0:
                 break
             yield recs
     finally:
-        lib.seeksv_bam_close(s)
+        c = (ctypes.c_int64 * 4)()
+        lib.seeksv_torch_bam_counts(s, c)
+        lib.seeksv_torch_bam_close(s)
+        for name, v in zip(("scan.slabs", "scan.slabs_recycled",
+                            "scan.windows", "scan.windows_ready"), c):
+            trace.count(name, v)
 
 
 def pack_sim_available() -> bool:
@@ -406,7 +449,8 @@ def rec_offsets(recs) -> Optional[np.ndarray]:
     s = owner.handle.contents
     if not s.rec_off:
         return None
-    return _view(s.rec_off, int(s.n) + 1, np.int64), int(s.body_off)
+    return (_view(s.rec_off, int(s.n) + 1, np.int64, owner),
+            int(s.body_off))
 
 
 def sw_available() -> bool:

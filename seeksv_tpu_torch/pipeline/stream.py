@@ -197,7 +197,8 @@ class StreamStats:
 
         # compact discordant-counting columns, copied into the resident
         # growable buffers (the slab's arrays are zero-copy views into the
-        # native decoder's buffers, freed when the slab is dropped).
+        # native decoder's buffers, which it reuses once the slab is
+        # dropped).
         self._cols.append(
             pos=recs.pos, mpos=recs.mpos, mtid=recs.mtid,
             l_qseq=recs.l_qseq, flag=recs.flag, mapq=recs.mapq,
@@ -256,7 +257,8 @@ def scan_bam(bam_path: str, chunk_records: int,
     prefetch=True decodes slab k+1 on a background thread while the
     consumers process slab k: the native decoder (ctypes -> C++ threads)
     releases the GIL, so decode wall-clock overlaps the Python/numpy
-    consumer work.
+    consumer work.  The thread starts slab k+2 only once the consumers
+    have dropped slab k: two slabs at a time.
 
     lazy_seq=True skips base decode for unclipped fully-mapped records
     (GetclipStream/StreamStats never read those bases; pass False for
@@ -298,6 +300,7 @@ def scan_bam(bam_path: str, chunk_records: int,
     q: "queue.Queue" = queue.Queue(maxsize=1)
     _SENTINEL = object()
     stop = threading.Event()
+    slots = threading.Semaphore(2)  # the consumers' slab and the next
 
     token = trace.handoff()
 
@@ -307,13 +310,17 @@ def scan_bam(bam_path: str, chunk_records: int,
                 chunks = read_bam_chunks(bam_path, chunk_records,
                                          lazy_seq=lazy_seq)
                 while True:
+                    slots.acquire()
+                    if stop.is_set():  # consumer raised: abandon the decode
+                        return
                     with trace.span("seeksv.scan.decode"):
                         recs = next(chunks, None)
                     if recs is None:
                         break
-                    if stop.is_set():  # consumer raised: abandon the decode
+                    if stop.is_set():
                         return
                     q.put(recs)
+                    del recs
                 q.put(_SENTINEL)
             except BaseException as e:  # surfaced in the consumer loop
                 q.put(e)
@@ -333,9 +340,12 @@ def scan_bam(bam_path: str, chunk_records: int,
                     cns.process(item)
             with trace.span("seeksv.scan.release"):
                 del item  # drop the slab before blocking on the next one
+            slots.release()
     finally:
-        # stop + unblock a producer stuck on put() if the consumer raised
+        # stop + unblock a producer stuck on put() or on its slot if the
+        # consumer raised
         stop.set()
+        slots.release()
         while th.is_alive():
             try:
                 q.get_nowait()

@@ -28,6 +28,11 @@ torch.set_num_threads(1)
 
 CHUNK = 20_000      # three decode slabs of the small dataset
 STAGES = ["native", "scan_bam", "index", "realign", "getsv", "total"]
+# the streamed decoder's counters (io/native.iter_bam_chunks_native)
+SCAN_COUNTS = ("scan.slabs", "scan.slabs_recycled", "scan.windows",
+               "scan.windows_ready")
+BENCH = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "benchmark")
 
 
 @pytest.fixture(scope="module")
@@ -263,7 +268,9 @@ def test_stages_are_their_spans(data, tmp_path):
     # three slabs, and the read that finds the end
     assert len(decode) == 4
     assert {s["parent_name"] for s in decode} == {"seeksv.stage.scan_bam"}
-    assert meta["counts"] == {"scan.bam_bytes": os.path.getsize(paths["bam"])}
+    assert set(meta["counts"]) == {"scan.bam_bytes", *SCAN_COUNTS}
+    assert meta["counts"]["scan.bam_bytes"] == os.path.getsize(paths["bam"])
+    assert meta["counts"]["scan.slabs"] == 3
     to_us = _to_trace_us(doc, meta)
     for s in decode:
         assert scan["ts"] <= to_us(s["t0_ns"]) <= to_us(s["t1_ns"]) \
@@ -280,8 +287,14 @@ def test_counters_of_two_passes_do_not_mix(data, tmp_path):
     doc = _export(prof, tmp_path / "t.json")
     a, b = _records(doc)
     assert a["pass"] < b["pass"]
-    assert a["counts"] == b["counts"] == {
-        "scan.bam_bytes": os.path.getsize(paths["bam"])}
+    # the decoder's recycled sets and ready windows depend on the threads'
+    # timing; the rest is the work's
+    fixed = ("scan.bam_bytes", "scan.slabs", "scan.windows")
+    assert [{k: r["counts"][k] for k in fixed} for r in (a, b)] == [
+        {"scan.bam_bytes": os.path.getsize(paths["bam"]), "scan.slabs": 3,
+         "scan.windows": a["counts"]["scan.windows"]}] * 2
+    assert set(a["counts"]) == set(b["counts"]) == {"scan.bam_bytes",
+                                                    *SCAN_COUNTS}
     # each record's spans lie between its own anchors
     for r in (a, b):
         to_us = _to_trace_us(doc, r)
@@ -315,8 +328,9 @@ def test_outputs_identical_with_the_profiler(tmp_path):
     got = {s[2] for s in rec.spans}
     assert got >= {"seeksv.stage.somatic", "seeksv.somatic.read_clips",
                    "seeksv.somatic.lookup", "seeksv.somatic.filter"}
-    assert rec.counts == {"scan.bam_bytes": os.path.getsize(cancer)
-                          + os.path.getsize(normal)}
+    assert rec.counts["scan.bam_bytes"] == os.path.getsize(cancer) \
+        + os.path.getsize(normal)
+    assert set(rec.counts) == {"scan.bam_bytes", *SCAN_COUNTS}
     assert list(res["stages_s"]) == STAGES[:-1] + ["somatic", "total"]
 
 
@@ -346,3 +360,61 @@ def test_cli_run_stream_profile(data, tmp_path, capfd):
     err = capfd.readouterr().err
     stages = json.loads(err.strip().splitlines()[-1])["stages_s"]
     assert "profile_export" in stages and "scan_bam" in stages
+
+
+def _reader(name):
+    """read(ctx) of the benchmark's metrics/<name>.py."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"reader_{name}", os.path.join(BENCH, "metrics", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def test_scan_counters_and_their_readers(data, tmp_path, monkeypatch):
+    """Under a profiler, scan_bam records the streamed decoder's four
+    counters, and the benchmark's two readers of them return shares
+    between 0 and 100; with no profiler nothing is recorded, and a trace
+    without the counters gives the readers nothing to read."""
+    from seeksv_tpu_torch.pipeline.getclip import GetclipStream
+    from seeksv_tpu_torch.pipeline.stream import StreamStats, scan_bam
+    monkeypatch.syspath_prepend(BENCH)
+    root, paths = data
+
+    def one_scan(prefix):
+        g = GetclipStream(str(prefix))
+        scan_bam(paths["bam"], CHUNK, [g, StreamStats(20, 5_000_000)])
+        g.close()
+
+    before = trace.last()
+    one_scan(tmp_path / "off")
+    assert trace.last() is before
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("bench.pass"):
+            with trace.driver_pass():
+                with trace.span("seeksv.stage.scan_bam"):
+                    one_scan(tmp_path / "on")
+    counts = trace.last().counts
+    assert set(counts) == {"scan.bam_bytes", *SCAN_COUNTS}
+    assert counts["scan.slabs"] == 3
+    assert 0 <= counts["scan.slabs_recycled"] <= counts["scan.slabs"]
+    assert 1 <= counts["scan.windows"]
+    assert 0 <= counts["scan.windows_ready"] <= counts["scan.windows"]
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    ctx = {"trace_path": str(tmp_path / "t.json")}
+    for name, part, whole in (
+            ("scan_slab_reuse_pct", "scan.slabs_recycled", "scan.slabs"),
+            ("scan_inflate_ready_pct", "scan.windows_ready",
+             "scan.windows")):
+        v = _reader(name)(ctx)
+        assert 0 <= v <= 100
+        assert v == pytest.approx(100 * counts[part] / counts[whole])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("bench.pass"):
+            with torch.profiler.record_function("seeksv.stage.scan_bam"):
+                one_scan(tmp_path / "bare")
+    prof.export_chrome_trace(str(tmp_path / "bare.json"))
+    ctx = {"trace_path": str(tmp_path / "bare.json")}
+    assert _reader("scan_slab_reuse_pct")(ctx) is None
+    assert _reader("scan_inflate_ready_pct")(ctx) is None
