@@ -470,7 +470,9 @@ class DiscordantCounter:
     (ref: getsv.cpp:990-1120 / :1123-1247).  All records of the original
     BAM are held as SoA arrays; each junction's window is a searchsorted
     slice + boolean reductions — the same structure used for the sharded
-    device path (windowed gathers instead of index seeks)."""
+    device path (windowed gathers instead of index seeks).  ``count``
+    adds the records a junction's window covers to the pass's counter
+    ``getsv.window_records`` (utils/trace.count; somatic's calls too)."""
 
     def __init__(self, recs, min_mapq: int, mean_insert: int,
                  deviation: int, times: int, skip_hard_clip: bool = True):
@@ -515,7 +517,11 @@ class DiscordantCounter:
         # silently promotes+copies an int32 array per call — at 30M
         # records that turned each window probe into a 200MB memcpy
         self.pos64 = np.asarray(recs.pos, np.int64)
-        # per-tid sorted views (BAM is coordinate sorted)
+        # per-tid sorted views: a coordinate-sorted BAM holds each
+        # contig's records in one run, and its unplaced reads (tid -1)
+        # after all of them, so the tid column as a whole is not sorted
+        # (a binary search over it can run into that tail and cut a
+        # contig's last windows short): the runs are found directly
         self.tid_ranges: Dict[int, Tuple[int, int]] = {}
         # per-tid max reference span: a record at pos p can only overlap
         # beg if p > beg - max_span, which bounds the window slice from
@@ -523,12 +529,11 @@ class DiscordantCounter:
         self.tid_max_span: Dict[int, int] = {}
         tids = np.asarray(recs.tid)
         span = self.end - recs.pos
-        for t in range(len(recs.ref_names)):
-            # keys cast to the array dtype: a python-int key would promote
-            # (and copy) the whole 30M-element array per searchsorted
-            lo = int(np.searchsorted(tids, tids.dtype.type(t), "left"))
-            hi = int(np.searchsorted(tids, tids.dtype.type(t), "right"))
-            if hi > lo:
+        bounds = np.concatenate([[0], np.flatnonzero(tids[1:] != tids[:-1])
+                                 + 1, [len(tids)]])
+        for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+            t = int(tids[lo]) if hi > lo else -1
+            if 0 <= t < len(recs.ref_names):
                 self.tid_ranges[t] = (lo, hi)
                 self.tid_max_span[t] = int(span[lo:hi].max())
 
@@ -561,7 +566,9 @@ class DiscordantCounter:
                                        "right"))
         sl = slice(min(lo2, hi2), hi2)
         r = self.recs
-        m = self.base_ok[sl] & (self.end[sl] > beg)
+        covers = self.end[sl] > beg
+        trace.count("getsv.window_records", int(np.count_nonzero(covers)))
+        m = self.base_ok[sl] & covers
         if not m.any():
             return 0
         mtid = self.name2tid.get(down_chr, -1)
@@ -917,8 +924,9 @@ def getsv(clip_sam: str, original_bam: str, clipfile: str, sv_out: str,
         log(f"Mean insert size: {mean}; deviation: {dev}")
         with trace.span("seeksv.getsv.discordant"):
             counter = DiscordantCounter(recs, min_mapq, mean, dev, times)
-            for j, o in jmap.items:
-                o.abnormal = counter.count(j)
+            with trace.span("seeksv.getsv.windows"):
+                for j, o in jmap.items:
+                    o.abnormal = counter.count(j)
         log("'FindDiscordantReadPairs' finished")
     else:
         min_abnormal = 0  # ref: seeksv.cpp:284-286

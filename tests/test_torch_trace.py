@@ -31,6 +31,8 @@ STAGES = ["native", "scan_bam", "index", "realign", "getsv", "total"]
 # the streamed decoder's counters (io/native.iter_bam_chunks_native)
 SCAN_COUNTS = ("scan.slabs", "scan.slabs_recycled", "scan.windows",
                "scan.windows_ready")
+# a whole pass adds getsv's discordant windows (pipeline/getsv.py)
+PASS_COUNTS = ("scan.bam_bytes", *SCAN_COUNTS, "getsv.window_records")
 BENCH = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmark")
 
@@ -268,7 +270,7 @@ def test_stages_are_their_spans(data, tmp_path):
     # three slabs, and the read that finds the end
     assert len(decode) == 4
     assert {s["parent_name"] for s in decode} == {"seeksv.stage.scan_bam"}
-    assert set(meta["counts"]) == {"scan.bam_bytes", *SCAN_COUNTS}
+    assert set(meta["counts"]) == set(PASS_COUNTS)
     assert meta["counts"]["scan.bam_bytes"] == os.path.getsize(paths["bam"])
     assert meta["counts"]["scan.slabs"] == 3
     to_us = _to_trace_us(doc, meta)
@@ -293,8 +295,9 @@ def test_counters_of_two_passes_do_not_mix(data, tmp_path):
     assert [{k: r["counts"][k] for k in fixed} for r in (a, b)] == [
         {"scan.bam_bytes": os.path.getsize(paths["bam"]), "scan.slabs": 3,
          "scan.windows": a["counts"]["scan.windows"]}] * 2
-    assert set(a["counts"]) == set(b["counts"]) == {"scan.bam_bytes",
-                                                    *SCAN_COUNTS}
+    assert set(a["counts"]) == set(b["counts"]) == set(PASS_COUNTS)
+    assert a["counts"]["getsv.window_records"] == \
+        b["counts"]["getsv.window_records"] > 0
     # each record's spans lie between its own anchors
     for r in (a, b):
         to_us = _to_trace_us(doc, r)
@@ -330,7 +333,7 @@ def test_outputs_identical_with_the_profiler(tmp_path):
                    "seeksv.somatic.lookup", "seeksv.somatic.filter"}
     assert rec.counts["scan.bam_bytes"] == os.path.getsize(cancer) \
         + os.path.getsize(normal)
-    assert set(rec.counts) == {"scan.bam_bytes", *SCAN_COUNTS}
+    assert set(rec.counts) == set(PASS_COUNTS)
     assert list(res["stages_s"]) == STAGES[:-1] + ["somatic", "total"]
 
 
@@ -418,3 +421,30 @@ def test_scan_counters_and_their_readers(data, tmp_path, monkeypatch):
     ctx = {"trace_path": str(tmp_path / "bare.json")}
     assert _reader("scan_slab_reuse_pct")(ctx) is None
     assert _reader("scan_inflate_ready_pct")(ctx) is None
+
+
+def test_window_records_counter_and_its_reader(data, tmp_path,
+                                               monkeypatch):
+    """A streamed pass under a profiler inside ``bench.pass`` records
+    ``getsv.window_records``, and the benchmark's reader gives it over
+    the pass's ``seeksv.getsv.windows`` seconds (inside its
+    ``seeksv.getsv.discordant``); the same pass with
+    no profiler records nothing."""
+    monkeypatch.syspath_prepend(BENCH)
+    root, paths = data
+    before = trace.last()
+    _stream(paths, tmp_path / "off")
+    assert trace.last() is before
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("bench.pass"):
+            _stream(paths, tmp_path / "on")
+    n = trace.last().counts["getsv.window_records"]
+    doc = _export(prof, tmp_path / "t.json")
+    sec = sum(e["dur"] * 1e-6
+              for e in _annotations(doc, "seeksv.getsv.windows"))
+    outer = sum(e["dur"] * 1e-6
+                for e in _annotations(doc, "seeksv.getsv.discordant"))
+    assert n > 0 and 0 < sec < outer
+    v = _reader("getsv_window_records_per_s")(
+        {"trace_path": str(tmp_path / "t.json")})
+    assert v == pytest.approx(n / sec, rel=1e-6)
