@@ -19,7 +19,10 @@
 //     small buffer;
 //   - one sequential walk on the caller's thread finds the records and
 //     their cigar / seq / qname offsets; the caller and the idle workers
-//     then fill the columns as fill_records does;
+//     then fill the columns as fill_records does, and beside them each
+//     record's CIGAR summary (its first and last op and length, and its
+//     reference span with and without X), which the reference does not
+//     write;
 //   - a slab's columns go into a buffer set from a pool.  The caller hands
 //     the set back with seeksv_torch_bam_release when the last view of it
 //     is gone; a set handed back after the stream closed is freed.
@@ -199,7 +202,9 @@ int32_t aux_xc(const uint8_t* a, const uint8_t* end) {
 
 // ---- the stream
 
-// The layout of csrc/seeksv_native.cpp's BamSoA (io/native.py _BamSoA).
+// The layout of csrc/seeksv_native.cpp's BamSoA (io/native.py _BamSoA),
+// then each record's CIGAR summary, which only this decoder writes
+// (io/native.py _TorchSoA).
 struct SoA {
   int64_t n;
   int32_t* flag;
@@ -228,6 +233,12 @@ struct SoA {
   int64_t* rec_off;   // null: a streamed slab has no stream offsets
   int64_t body_off;
   char error[256];
+  int32_t* first_op;   // op of the first CIGAR word; -1: no CIGAR
+  int32_t* last_op;
+  int32_t* first_len;  // length of the first CIGAR word; 0: no CIGAR
+  int32_t* last_len;
+  int32_t* span_nox;   // M/D/N/= lengths summed
+  int32_t* span_x;     // M/D/N/=/X lengths summed (bam_calend)
 };
 
 // A buffer of T that only grows, never value-initialised: a mapping of
@@ -271,7 +282,9 @@ struct Pool;
 struct Set {
   SoA soa;
   Pool* pool = nullptr;
-  Arr<int32_t> i32[9];    // flag tid pos mapq mtid mpos isize l_qseq xc
+  Arr<int32_t> i32[15];   // flag tid pos mapq mtid mpos isize l_qseq xc,
+                          // first_op last_op first_len last_len span_nox
+                          // span_x
   Arr<int64_t> off[3];    // cig_off seq_off qname_off
   Arr<uint32_t> cig;
   Arr<uint8_t> seq, qual, qnames;
@@ -526,16 +539,33 @@ void fill_rows(const FillJob* j, int64_t lo, int64_t hi) {
       memcpy(out->qnames + out->qname_off[i], body, l_read_name - 1);
     body += l_read_name;
     memcpy(out->cig + out->cig_off[i], body, 4 * (size_t)n_cigar);
-    bool need_seq = true;
-    if (j->lazy) {
-      need_seq = (flag & 0xC) != 0;  // unmapped or mate-unmapped
-      if (!need_seq && n_cigar) {
-        uint32_t c0, cl;
-        memcpy(&c0, body, 4);
-        memcpy(&cl, body + 4 * ((size_t)n_cigar - 1), 4);
-        need_seq = (c0 & 0xF) == 4 || (cl & 0xF) == 4;  // soft clip
+    // the CIGAR summary, so that no consumer walks the CIGARs again
+    int32_t first_op = -1, last_op = -1, first_len = 0, last_len = 0;
+    int64_t span_nox = 0, span_x = 0;
+    for (uint16_t k = 0; k < n_cigar; k++) {
+      uint32_t c;
+      memcpy(&c, body + 4 * (size_t)k, 4);
+      const uint32_t op = c & 0xF, len = c >> 4;
+      if (k == 0) {
+        first_op = (int32_t)op;
+        first_len = (int32_t)len;
       }
+      last_op = (int32_t)op;
+      last_len = (int32_t)len;
+      if (op == 0 || op == 2 || op == 3 || op == 7)  // M D N =
+        span_nox += len;
+      else if (op == 8)  // X
+        span_x += len;
     }
+    out->first_op[i] = first_op;
+    out->last_op[i] = last_op;
+    out->first_len[i] = first_len;
+    out->last_len[i] = last_len;
+    out->span_nox[i] = (int32_t)span_nox;
+    out->span_x[i] = (int32_t)(span_nox + span_x);
+    bool need_seq = true;
+    if (j->lazy)  // unmapped or mate-unmapped, or a soft clip at an end
+      need_seq = (flag & 0xC) != 0 || first_op == 4 || last_op == 4;
     body += 4 * (size_t)n_cigar;
     if (need_seq) {
       uint8_t* sdst = out->seq + out->seq_off[i];
@@ -898,6 +928,12 @@ SoA* seeksv_torch_bam_next(void* h, int64_t max_records,
   out->isize = set->i32[6].p;
   out->l_qseq = set->i32[7].p;
   out->xc = set->i32[8].p;
+  out->first_op = set->i32[9].p;
+  out->last_op = set->i32[10].p;
+  out->first_len = set->i32[11].p;
+  out->last_len = set->i32[12].p;
+  out->span_nox = set->i32[13].p;
+  out->span_x = set->i32[14].p;
   out->cig_off = offs[0].p;
   out->seq_off = offs[1].p;
   out->qname_off = offs[2].p;

@@ -51,6 +51,13 @@ for _b in range(256):
 
 _CHAR2OP = {c: i for i, c in enumerate(CIGAR_CHARS)}
 
+# A slab's CIGAR summary: the streamed decoder's columns (io/native.py
+# _TorchSoA) -> the BamRecords memo key of the helper each stands for
+CIGAR_SUMMARY = {"first_op": "first_op", "last_op": "last_op",
+                 "first_len": "first_len", "last_len": "last_len",
+                 "span_nox": ("ref_span", False),
+                 "span_x": ("ref_span", True)}
+
 
 @dataclass
 class BamRecords:
@@ -104,7 +111,8 @@ class BamRecords:
         return self.ref_names[tid]
 
     # vectorized helpers (memoized: multiple streaming consumers ask for
-    # the same columns per slab) ----------------------------------------
+    # the same columns per slab; the streamed decoder fills the memo with
+    # its CIGAR summary) -------------------------------------------------
     _memo: dict = None
 
     def _cached(self, key, fn):
@@ -114,6 +122,12 @@ class BamRecords:
         if v is None:
             v = self._memo[key] = fn()
         return v
+
+    def summarised(self) -> bool:
+        """Whether the memo holds every CIGAR summary helper's column
+        (the streamed decoder writes them), so none walks the CIGARs."""
+        return self._memo is not None and all(
+            k in self._memo for k in CIGAR_SUMMARY.values())
 
     def first_op(self) -> np.ndarray:
         """CIGAR op code of the first op per record (-1 when no cigar)."""
@@ -135,16 +149,22 @@ class BamRecords:
         return self._cached("last_op", compute)
 
     def first_len(self) -> np.ndarray:
-        out = np.zeros(self.n, dtype=np.int32)
-        has = self.cig_off[1:] > self.cig_off[:-1]
-        out[has] = (self.cig[self.cig_off[:-1][has]] >> 4).astype(np.int32)
-        return out
+        def compute():
+            out = np.zeros(self.n, dtype=np.int32)
+            has = self.cig_off[1:] > self.cig_off[:-1]
+            out[has] = (self.cig[self.cig_off[:-1][has]] >> 4).astype(
+                np.int32)
+            return out
+        return self._cached("first_len", compute)
 
     def last_len(self) -> np.ndarray:
-        out = np.zeros(self.n, dtype=np.int32)
-        has = self.cig_off[1:] > self.cig_off[:-1]
-        out[has] = (self.cig[self.cig_off[1:][has] - 1] >> 4).astype(np.int32)
-        return out
+        def compute():
+            out = np.zeros(self.n, dtype=np.int32)
+            has = self.cig_off[1:] > self.cig_off[:-1]
+            out[has] = (self.cig[self.cig_off[1:][has] - 1] >> 4).astype(
+                np.int32)
+            return out
+        return self._cached("last_len", compute)
 
     def ref_span(self, count_x: bool = True) -> np.ndarray:
         """Reference-consumed length per record.

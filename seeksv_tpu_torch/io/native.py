@@ -17,6 +17,8 @@ from typing import Optional
 
 import numpy as np
 
+from .bam import CIGAR_SUMMARY
+
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
@@ -50,6 +52,21 @@ class _BamSoA(ctypes.Structure):
         ("rec_off", ctypes.POINTER(ctypes.c_int64)),
         ("body_off", ctypes.c_int64),
         ("error", ctypes.c_char * 256),
+    ]
+
+
+class _TorchSoA(_BamSoA):
+    """A slab of the port's streamed decoder (csrc/bam_stream.cpp SoA):
+    _BamSoA's layout, then each record's CIGAR summary, int32 columns in
+    the C struct's order (io/bam.CIGAR_SUMMARY maps each to the memo key
+    of the BamRecords helper it stands for)."""
+    _fields_ = [
+        ("first_op", ctypes.POINTER(ctypes.c_int32)),
+        ("last_op", ctypes.POINTER(ctypes.c_int32)),
+        ("first_len", ctypes.POINTER(ctypes.c_int32)),
+        ("last_len", ctypes.POINTER(ctypes.c_int32)),
+        ("span_nox", ctypes.POINTER(ctypes.c_int32)),
+        ("span_x", ctypes.POINTER(ctypes.c_int32)),
     ]
 
 
@@ -125,13 +142,6 @@ def _load() -> Optional[ctypes.CDLL]:
                     lib.seeksv_nm_from_runs.argtypes = [
                         p32, p64, p32, p64, ctypes.c_int64, p32,
                         ctypes.POINTER(ctypes.c_uint8), p64, p32]
-                if hasattr(lib, "seeksv_stream_end_hard"):
-                    p32 = ctypes.POINTER(ctypes.c_int32)
-                    p64 = ctypes.POINTER(ctypes.c_int64)
-                    lib.seeksv_stream_end_hard.argtypes = [
-                        p32, ctypes.POINTER(ctypes.c_uint32), p64,
-                        ctypes.c_int64, p32,
-                        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32]
                 if hasattr(lib, "seeksv_bgzf_compress"):
                     pu8 = ctypes.POINTER(ctypes.c_uint8)
                     lib.seeksv_bgzf_bound.restype = ctypes.c_int64
@@ -153,11 +163,11 @@ def _load() -> Optional[ctypes.CDLL]:
                     lib.seeksv_torch_bam_open.argtypes = [
                         ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p]
                     lib.seeksv_torch_bam_next.restype = \
-                        ctypes.POINTER(_BamSoA)
+                        ctypes.POINTER(_TorchSoA)
                     lib.seeksv_torch_bam_next.argtypes = [
                         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
                     lib.seeksv_torch_bam_release.argtypes = [
-                        ctypes.POINTER(_BamSoA)]
+                        ctypes.POINTER(_TorchSoA)]
                     lib.seeksv_torch_bam_counts.argtypes = [
                         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
                     lib.seeksv_torch_bam_close.argtypes = [ctypes.c_void_p]
@@ -278,7 +288,9 @@ def _view(ptr, n, dtype, owner):
 def _soa_to_records(h, path: str, free):
     """Wrap a native BamSoA* handle as a BamRecords of zero-copy views;
     every view keeps the handle's _Owner, which hands it to ``free`` when
-    the last view is gone.  Raises on a set error field."""
+    the last view is gone.  A _TorchSoA's CIGAR summary goes into the
+    records' memo, so that their CIGAR helpers return it.  Raises on a set
+    error field."""
     from .bam import BamRecords, LazyQnames
 
     s = h.contents
@@ -298,6 +310,10 @@ def _soa_to_records(h, path: str, free):
     names_blob = view(s.ref_names, s.ref_names_len, np.uint8).tobytes()
     ref_names = [x.decode() for x in names_blob.split(b"\x00") if x]
     ref_lens = view(s.ref_lens, s.n_refs, np.int32).tolist()
+    memo = None
+    if isinstance(s, _TorchSoA):
+        memo = {key: view(getattr(s, col), n, np.int32)
+                for col, key in CIGAR_SUMMARY.items()}
     return BamRecords(
         ref_names=ref_names, ref_lens=[int(x) for x in ref_lens], n=n,
         flag=view(s.flag, n, np.int32), tid=view(s.tid, n, np.int32),
@@ -312,7 +328,7 @@ def _soa_to_records(h, path: str, free):
         qual=view(s.qual, s.n_seq_total, np.uint8),
         seq_off=view(s.seq_off, n + 1, np.int64),
         xc=view(s.xc, n, np.int32),
-        owner=owner,
+        owner=owner, _memo=memo,
     )
 
 
@@ -348,11 +364,13 @@ def iter_bam_chunks_native(path: str, chunk_records: int,
     back to the stream's pool when the last view of the slab is gone.
     Peak footprint: the windows in flight + one set a slab held.  Slabs,
     columns and errors are those of the reference's seeksv_bam_next2
-    (tests/test_torch_bam_stream.py).  When the stream closes its counts
-    go to utils/trace.count: ``scan.slabs``, ``scan.slabs_recycled``
-    (slabs written into a set an earlier slab handed back),
-    ``scan.windows`` and ``scan.windows_ready`` (windows inflated before
-    the walk reached them).
+    (tests/test_torch_bam_stream.py); each slab also carries its records'
+    CIGAR summary, which its CIGAR helpers return (BamRecords.summarised).
+    When the stream closes its counts go to utils/trace.count:
+    ``scan.slabs``, ``scan.slabs_recycled`` (slabs written into a set an
+    earlier slab handed back), ``scan.slabs_summarised`` (slabs that
+    carried the summary), ``scan.windows`` and ``scan.windows_ready``
+    (windows inflated before the walk reached them).
 
     lazy_seq=True skips the seq/qual decode for records that are fully
     mapped with no soft-clipped end — valid only when the consumer reads
@@ -366,12 +384,14 @@ def iter_bam_chunks_native(path: str, chunk_records: int,
     s = lib.seeksv_torch_bam_open(path.encode(), n_threads, err)
     if not s:
         raise IOError(f"{path}: {err.value.decode()}")
+    summarised = 0
     try:
         while True:
             h = lib.seeksv_torch_bam_next(s, chunk_records, int(lazy_seq))
             recs = _soa_to_records(h, path, lib.seeksv_torch_bam_release)
             if recs.n == 0:
                 break
+            summarised += recs.summarised()
             yield recs
     finally:
         c = (ctypes.c_int64 * 4)()
@@ -380,6 +400,7 @@ def iter_bam_chunks_native(path: str, chunk_records: int,
         for name, v in zip(("scan.slabs", "scan.slabs_recycled",
                             "scan.windows", "scan.windows_ready"), c):
             trace.count(name, v)
+        trace.count("scan.slabs_summarised", summarised)
 
 
 def pack_sim_available() -> bool:
@@ -863,33 +884,6 @@ def nm_from_runs(qs, ts, runs):
         rop.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         r_off.ctypes.data_as(p64), nm.ctypes.data_as(p32))
     return nm
-
-
-def stream_end_hard_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_stream_end_hard")
-
-
-def stream_end_hard(recs, n_threads: int = 0):
-    """(end, hard) per record: end = pos + ref span (M/D/N/=/X,
-    bam_calend), hard = first-or-last cigar op is H.  One threaded
-    native pass replacing the cumsum-based numpy forms on the
-    StreamStats hot path (pipeline/stream.py)."""
-    lib = _load()
-    p32 = ctypes.POINTER(ctypes.c_int32)
-    p64 = ctypes.POINTER(ctypes.c_int64)
-    pos = np.ascontiguousarray(recs.pos, np.int32)
-    cig = np.ascontiguousarray(recs.cig, np.uint32)
-    cig_off = np.ascontiguousarray(recs.cig_off, np.int64)
-    end = np.empty(recs.n, np.int32)
-    hard = np.empty(recs.n, np.uint8)
-    lib.seeksv_stream_end_hard(
-        pos.ctypes.data_as(p32),
-        cig.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        cig_off.ctypes.data_as(p64), recs.n,
-        end.ctypes.data_as(p32),
-        hard.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n_threads)
-    return end, hard.view(bool)
 
 
 def depth_diff_soa_available() -> bool:

@@ -32,7 +32,6 @@ import torch
 
 from ..align.engine import Aligner, BatchAligner
 from ..align.index import KmerIndex
-from ..io import native
 from ..io.bam import (BamRecords, FDUP, FMUNMAP, FPAIRED, FPROPER_PAIR,
                       FUNMAP, OP_H, OP_S)
 from ..ops import coverage as cov_ops
@@ -41,7 +40,7 @@ from ..pipeline.getclip import (GetclipStream, _get_sclip_read,
                                 _map_len_no_x, _store_unmapped)
 from ..pipeline.getsv import (DepthQuery, DiscordantCounter, SV_HEADER,
                               output_breakpoints)
-from ..pipeline.stream import LightBam, _GrowCols, scan_bam
+from ..pipeline.stream import LightBam, _GrowCols, _end_hard, scan_bam
 from .mesh import agree, all_gather, all_reduce_sum, mesh_device, shard_index
 from .spmd_pipeline import (HIST_SIZE, _flat_segments, _insert_columns,
                             _insert_stats_from_hist, is_writer,
@@ -223,14 +222,7 @@ class SpmdStreamStats:
             self._base += int(ok.sum())
 
         # compact host columns (the discordant-window working set)
-        if native.stream_end_hard_available():
-            end, hard = native.stream_end_hard(recs)
-        else:
-            first_op = recs.first_op()
-            last_op = recs.last_op()
-            has_cigar = recs.cig_off[1:] > recs.cig_off[:-1]
-            hard = has_cigar & ((first_op == OP_H) | (last_op == OP_H))
-            end = recs.pos + recs.ref_span(count_x=True)
+        end, hard = _end_hard(recs)
         self._cols.append(
             pos=recs.pos, mpos=recs.mpos, mtid=recs.mtid,
             l_qseq=recs.l_qseq, flag=recs.flag, mapq=recs.mapq,

@@ -69,6 +69,15 @@ class LightBam:
     hard: np.ndarray    # bool
 
 
+def _end_hard(recs: BamRecords) -> Tuple[np.ndarray, np.ndarray]:
+    """(end, hard) per record: end = pos + ref span (M/D/N/=/X,
+    bam_calend), hard = the first or last CIGAR op is H.  The streamed
+    decoder's slabs carry both in their CIGAR summary; other slabs
+    compute the numpy forms."""
+    hard = (recs.first_op() == OP_H) | (recs.last_op() == OP_H)
+    return recs.pos + recs.ref_span(count_x=True), hard
+
+
 class _GrowCols:
     """Preallocated growable SoA columns (doubling): appending slab
     columns writes into one resident buffer, so finalizing is a zero-copy
@@ -146,17 +155,7 @@ class StreamStats:
         self.ref_lens = list(recs.ref_lens)
         self.n += recs.n
 
-        # end (bam_calend) + hard in one threaded native pass; the numpy
-        # fallback pays a cumsum over the slab's cigar stream plus several
-        # gathers
-        if native.stream_end_hard_available():
-            end, hard = native.stream_end_hard(recs)
-        else:
-            first_op = recs.first_op()
-            last_op = recs.last_op()
-            has_cigar = recs.cig_off[1:] > recs.cig_off[:-1]
-            hard = has_cigar & ((first_op == OP_H) | (last_op == OP_H))
-            end = recs.pos + recs.ref_span(count_x=True)
+        end, hard = _end_hard(recs)
 
         # insert-size model: first N qualifying records in file order
         # (ref: cluster.cpp:25-56)

@@ -5,6 +5,7 @@ seeksv_bam_next2 with lazy seq): the same slab boundaries, every column
 byte for byte where the reference writes it, the same error messages;
 and a slab's buffer set is never written while a view of it lives."""
 import ctypes
+import dataclasses
 import gzip
 import itertools
 import os
@@ -17,6 +18,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from seeksv_tpu_torch.io import native
+from seeksv_tpu_torch.io.bam import (CIGAR_SUMMARY, cigar_str_to_ops,
+                                     iter_bam_chunks_python)
 from seeksv_tpu_torch.io.bam_writer import BgzfWriter
 from seeksv_tpu_torch.utils import trace
 
@@ -116,13 +119,45 @@ def _write_bam(path, rng, n, huge_at=None, level=1):
     return str(path)
 
 
+# one record of each CIGAR shape: none (unmapped), H at either end and at
+# both, S at both ends, =, X (at an end too), N, D, I and P
+_SHAPES = ("*", "5H95M", "95M5H", "3H94M3H", "10S80M10S", "50=1X49=",
+           "2X98M", "98M2X", "40M1000N60M", "50M2D50M", "40M5I55M",
+           "40M2P5I55M", "7S3X20=4D1I30M2N35=5S", "100M", "1M")
+
+
+def _shapes_bam(path, rng, n):
+    """n records cycling through _SHAPES, with random lengths scaled into
+    each op, flags and tags."""
+    pool = rng.integers(0, 256, 1 << 16, dtype=np.uint8).tobytes()
+    w = BgzfWriter(str(path), level=1)
+    w.write(_header())
+    for i in range(n):
+        ops = cigar_str_to_ops(_SHAPES[i % len(_SHAPES)])
+        scale = int(rng.integers(1, 4))
+        ops = ((ops >> 4) * scale << 4) | (ops & 0xF)
+        cig = ops.astype("<u4").tobytes()
+        flag = 0x4 if not len(ops) else int(rng.choice(_FLAGS[:3]))
+        l_seq = int(rng.integers(0, 120))
+        n_seq = (l_seq + 1) // 2 + l_seq
+        name = b"r%d" % i
+        body = struct.pack("<iiBBHHHiiii", 0, i, len(name) + 1, 60, 0,
+                           len(ops), flag, l_seq, 0, i + 300, 400)
+        body += name + b"\x00" + cig + pool[:n_seq]
+        body += _TAGS[i % len(_TAGS)]
+        w.write(struct.pack("<i", len(body)) + body)
+    w.close()
+    return str(path)
+
+
 @pytest.fixture(scope="module")
 def bams(tmp_path_factory):
     from torch_inputs import single_chrom_dataset
     root = tmp_path_factory.mktemp("bam_stream")
     rng = np.random.default_rng(20261018)
     out = {"small": _write_bam(root / "small.bam", rng, 1_500),
-           "big": _write_bam(root / "big.bam", rng, 60_000, huge_at=31_000)}
+           "big": _write_bam(root / "big.bam", rng, 60_000, huge_at=31_000),
+           "shapes": _shapes_bam(root / "shapes.bam", rng, 2_000)}
     out["sim"], _fa = single_chrom_dataset(root, False)
     assert os.path.getsize(out["big"]) > 3 * WINDOW
     return out
@@ -184,6 +219,63 @@ def test_slabs_match_the_reference(bams, bam, chunk, n_threads, lazy):
         _assert_same(a, b, lazy)
         n += 1
     assert n >= 1
+
+
+def _plain_summary(recs):
+    """The numpy forms of the CIGAR summary, on records without a memo."""
+    plain = dataclasses.replace(recs, _memo=None)
+    assert not plain.summarised()
+    return {col: plain.ref_span(key[1]) if isinstance(key, tuple)
+            else getattr(plain, key)() for col, key in CIGAR_SUMMARY.items()}
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize("bam, chunk, n_threads", [
+    ("shapes", 1, 1), ("shapes", 7, 0), ("shapes", 10 ** 9, 3),
+    ("small", 7, 1), ("small", 10 ** 9, 0), ("sim", 7_001, 3),
+    ("big", 7_001, 0)])
+def test_cigar_summary_matches_the_numpy_forms(bams, bam, chunk, n_threads,
+                                               lazy):
+    """Every slab of the port's decoder carries its records' CIGAR
+    summary, and each helper returns the decoder's column: first_op,
+    last_op, first_len, last_len, ref_span without and with X equal to
+    the numpy forms on the reference's slabs, which carry none; on every
+    CIGAR shape (none, H, S, =, X, N, D, I, P), on random records, on
+    slabs that cut the stream at every record, at one and several
+    threads."""
+    path = bams[bam]
+    got = native.iter_bam_chunks_native(path, chunk, n_threads=n_threads,
+                                        lazy_seq=lazy)
+    want = _reference_chunks(path, chunk, lazy)
+    n = 0
+    for a, b in itertools.zip_longest(got, want):
+        assert a is not None and b is not None, n
+        assert a.summarised() and not b.summarised()
+        plain = _plain_summary(b)
+        assert a.first_op() is a._memo["first_op"]
+        assert a.ref_span(count_x=True) is a._memo[("ref_span", True)]
+        for col, key in CIGAR_SUMMARY.items():
+            got_col = a._memo[key]
+            assert got_col.dtype == np.int32 and got_col.base is not None
+            np.testing.assert_array_equal(got_col, plain[col], col)
+        n += a.n
+    assert n >= 1_500
+
+
+def test_other_decoders_carry_no_cigar_summary(bams):
+    """The whole-file decoder and the Python one give no summary: their
+    helpers compute the numpy forms, equal to the streamed slab's."""
+    path = bams["shapes"]
+    (streamed,) = native.iter_bam_chunks_native(path, 10 ** 9)
+    (python,) = iter_bam_chunks_python(path, 10 ** 9)
+    whole = native.read_bam_native(path)
+    for recs in (python, whole):
+        assert not recs.summarised()
+        for col, v in _plain_summary(recs).items():
+            np.testing.assert_array_equal(
+                v, streamed._memo[CIGAR_SUMMARY[col]], col)
+    assert np.any(streamed.first_op() == -1)
+    assert np.any(streamed.ref_span(False) != streamed.ref_span(True))
 
 
 def _truncated_block(src, dst):

@@ -10,16 +10,21 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from seeksv_tpu.pipeline.driver import run_pipeline as jax_run_pipeline
 from seeksv_tpu.pipeline.stream import \
     run_pipeline_streaming as jax_run_pipeline_streaming
+from seeksv_tpu_torch.io import native
+from seeksv_tpu_torch.io.bam import iter_bam_chunks_python
 from seeksv_tpu_torch.ops import extend as ext
 from seeksv_tpu_torch.ops import seed_device as tsd
 from seeksv_tpu_torch.pipeline.driver import run_pipeline
-from seeksv_tpu_torch.pipeline.stream import run_pipeline_streaming
+from seeksv_tpu_torch.pipeline.getclip import GetclipStream
+from seeksv_tpu_torch.pipeline.stream import (StreamStats,
+                                              run_pipeline_streaming)
 from seeksv_tpu_torch.utils.dataset import build_dataset
 
 # several test workers share few cores: one intra-op thread each keeps
@@ -85,6 +90,50 @@ def test_streaming_matches_jax_streaming(dataset):
     assert set(res["stages_s"]) >= {"native", "scan_bam", "index", "realign",
                                     "getsv", "total"}
     assert res["aligner"].device_seed
+
+
+def _consume(slabs, prefix):
+    """getclip and the scan's statistics over the slabs, as scan_bam
+    feeds them; whether every slab carried the CIGAR summary."""
+    g = GetclipStream(str(prefix))
+    stats = StreamStats(20, 5_000_000)
+    summarised = []
+    for recs in slabs:
+        summarised.append(recs.summarised())
+        g.process(recs)
+        stats.process(recs)
+    g.close()
+    return stats, summarised
+
+
+def test_consumers_read_the_summary_as_the_numpy_forms(dataset):
+    """GetclipStream and StreamStats fed the native stream's slabs (the
+    CIGAR summary in their memo) and the Python decoder's (the forms
+    computed from the CIGARs) write the same getclip outputs, keep the
+    same discordant-counting columns, coverage and insert size."""
+    root, paths = dataset
+    got, got_sum = _consume(native.iter_bam_chunks_native(
+        paths["bam"], CHUNK_RECORDS, lazy_seq=True), root / "summary")
+    want, want_sum = _consume(iter_bam_chunks_python(
+        paths["bam"], CHUNK_RECORDS), root / "computed")
+    assert len(got_sum) == len(want_sum) > 1
+    assert all(got_sum) and not any(want_sum)
+    for ext_ in ("clip.gz", "clip.fq.gz", "unmapped_1.fq.gz",
+                 "unmapped_2.fq.gz"):
+        with gzip.open(root / f"summary.{ext_}") as fa, \
+                gzip.open(root / f"computed.{ext_}") as fb:
+            a = fa.read()
+            assert a and a == fb.read(), ext_
+    la, lb = got.light(), want.light()
+    assert la.n == lb.n > 0
+    for k in ("pos", "mpos", "mtid", "l_qseq", "flag", "mapq", "isize",
+              "tid", "end", "hard"):
+        np.testing.assert_array_equal(getattr(la, k), getattr(lb, k), k)
+    ca, cb = got.coverage(), want.coverage()
+    assert ca.keys() == cb.keys()
+    for t in ca:
+        np.testing.assert_array_equal(ca[t], cb[t], t)
+    assert got.insert_size() == want.insert_size() != (0, 0)
 
 
 _NO_JAX = """

@@ -29,8 +29,8 @@ torch.set_num_threads(1)
 CHUNK = 20_000      # three decode slabs of the small dataset
 STAGES = ["native", "scan_bam", "index", "realign", "getsv", "total"]
 # the streamed decoder's counters (io/native.iter_bam_chunks_native)
-SCAN_COUNTS = ("scan.slabs", "scan.slabs_recycled", "scan.windows",
-               "scan.windows_ready")
+SCAN_COUNTS = ("scan.slabs", "scan.slabs_recycled", "scan.slabs_summarised",
+               "scan.windows", "scan.windows_ready")
 # a whole pass adds getsv's discordant windows (pipeline/getsv.py)
 PASS_COUNTS = ("scan.bam_bytes", *SCAN_COUNTS, "getsv.window_records")
 BENCH = os.path.join(os.path.dirname(os.path.dirname(
@@ -421,6 +421,49 @@ def test_scan_counters_and_their_readers(data, tmp_path, monkeypatch):
     ctx = {"trace_path": str(tmp_path / "bare.json")}
     assert _reader("scan_slab_reuse_pct")(ctx) is None
     assert _reader("scan_inflate_ready_pct")(ctx) is None
+
+
+def test_cigar_summary_counter_and_its_reader(data, tmp_path, monkeypatch):
+    """A native scan counts every slab as carrying the CIGAR summary
+    (``scan.slabs_summarised`` equals ``scan.slabs``) and the benchmark's
+    reader gives 100; the Python decoder's scan records neither counter,
+    and a scan whose slabs' summary was not counted (a decoder without
+    it) reads nothing, not 0."""
+    from seeksv_tpu_torch.io import native
+    from seeksv_tpu_torch.pipeline.getclip import GetclipStream
+    from seeksv_tpu_torch.pipeline.stream import StreamStats, scan_bam
+    monkeypatch.syspath_prepend(BENCH)
+    root, paths = data
+    read = _reader("scan_cigar_summary_pct")
+
+    def traced_scan(name):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with torch.profiler.record_function("bench.pass"):
+                with trace.driver_pass():
+                    with trace.span("seeksv.stage.scan_bam"):
+                        g = GetclipStream(str(tmp_path / name))
+                        scan_bam(paths["bam"], CHUNK,
+                                 [g, StreamStats(20, 5_000_000)])
+                        g.close()
+        prof.export_chrome_trace(str(tmp_path / f"{name}.json"))
+        return trace.last().counts, read(
+            {"trace_path": str(tmp_path / f"{name}.json")})
+
+    counts, pct = traced_scan("native")
+    assert counts["scan.slabs_summarised"] == counts["scan.slabs"] == 3
+    assert pct == 100.0
+    with monkeypatch.context() as m:
+        m.setattr(native, "stream_available", lambda: False)
+        counts, pct = traced_scan("python")
+    assert "scan.slabs_summarised" not in counts
+    assert "scan.slabs" not in counts and pct is None
+    count = trace.count
+    with monkeypatch.context() as m:
+        m.setattr(trace, "count", lambda name, n=1: None if name ==
+                  "scan.slabs_summarised" else count(name, n))
+        counts, pct = traced_scan("unsummarised")
+    assert "scan.slabs_summarised" not in counts
+    assert counts["scan.slabs"] == 3 and pct is None
 
 
 def test_window_records_counter_and_its_reader(data, tmp_path,
