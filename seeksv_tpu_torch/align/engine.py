@@ -877,7 +877,7 @@ class BatchAligner(Aligner):
         """The reference's host path: windows cut from the genome on the
         host, native C++ kernel when built, numpy mirror otherwise."""
         from ..io import native
-        kernel = (native.sw_extend_batch_native if native.sw_available()
+        kernel = (native.sw_extend_batch_native if native.available()
                   else extend_batch_np)
 
         def run(q, qlen, tstart, tlen, h0, reverse):
@@ -927,7 +927,7 @@ class BatchAligner(Aligner):
         or with force_host only: a CUDA device raises rather than leave
         its kernels unused."""
         from ..io import native
-        if not native.sw_global_batch_available():
+        if not native.available():
             if self.device.type == "cuda" and not force_host:
                 raise RuntimeError(
                     "device finalize needs the native host library, which "

@@ -122,7 +122,7 @@ class KmerIndex:
         bits = cls._bits(k, cap)
         if 0 < 2 * k - bits <= 16 and len(ref):
             from ..io import native
-            if native.index_build_available():
+            if native.available():
                 keys_low, pos32, ptab = native.index_build_native(
                     ref, starts, k, bits)
                 return cls(k, ref, names, starts, keys_low, pos32, ptab)

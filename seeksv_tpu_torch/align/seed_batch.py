@@ -33,7 +33,7 @@ def batch_candidates(idx: KmerIndex, reads: List[np.ndarray]
     if len(reads) == 0:
         return {}
     from ..io import native
-    if native.seed_batch_available() and idx.prefix_tab is not None:
+    if native.available() and idx.prefix_tab is not None:
         return native.seed_batch_native(idx, reads, MAX_OCC, TOP_CANDIDATES)
     return _batch_candidates_np(idx, reads)
 

@@ -180,7 +180,7 @@ def global_align(query: np.ndarray, target: np.ndarray,
     if n == 0:
         return -GAP_OPEN - m * GAP_EXT, [(m, "I")]
     from ..io import native
-    if native.sw_available():
+    if native.available():
         return native.sw_global_native(query, target)
     return global_align_np(query, target, w)
 

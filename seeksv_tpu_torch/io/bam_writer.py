@@ -43,11 +43,8 @@ class BgzfWriter:
         self.f = open(path, "wb")
         self.buf = bytearray()
         self.level = level
-        try:
-            from . import native
-            self._native = native if native.bgzf_available() else None
-        except ImportError:
-            self._native = None
+        from . import native
+        self._native = native if native.available() else None
 
     def write(self, data: bytes):
         # large writes are sliced from a moving offset (no quadratic

@@ -1,17 +1,20 @@
 """ctypes bindings for the native host runtime (csrc/seeksv_native.cpp,
 and the port's streamed BAM decoder seeksv_tpu_torch/csrc/bam_stream.cpp).
 
-Counterpart of seeksv_tpu/io/native.py.  The library is built at first use
-by ``_build.build_native`` into ``build/seeksv_tpu_torch/native/<hash>/``
-and loaded from there; where it cannot be built (no compiler, no source)
-the pure-python decoder in io/bam.py and the numpy kernels are used
-instead (identical contract, asserted by tests/test_torch_host_parity.py).
-On a CUDA device the port's entry points raise rather than run without it.
+Counterpart of seeksv_tpu/io/native.py.  One library, loaded whole or not
+at all: ``_build.build_native`` builds both sources into
+``build/seeksv_tpu_torch/native/<hash>/`` at first use, and every entry
+point in ``_SIGNATURES`` is bound from there; a failed build or a missing
+symbol leaves the library absent, with ``LOAD_ERROR`` naming the cause.
+``available()`` is the one predicate: callers that still run without the
+library ask it and take the pure-python decoder in io/bam.py or the numpy
+forms, which give the same bytes (tests/test_torch_host_parity.py); the
+wrappers here that fall back ask it too.  On a CUDA device the port's
+entry points raise rather than run without it.
 """
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 from typing import Optional
 
@@ -70,7 +73,72 @@ class _TorchSoA(_BamSoA):
     ]
 
 
-# why the library is absent, when it is (the build's error)
+_I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+_P = ctypes.c_void_p
+_S = ctypes.c_char_p
+_P32 = ctypes.POINTER(ctypes.c_int32)
+_P64 = ctypes.POINTER(ctypes.c_int64)
+_PU8 = ctypes.POINTER(ctypes.c_uint8)
+_PU16 = ctypes.POINTER(ctypes.c_uint16)
+_PU32 = ctypes.POINTER(ctypes.c_uint32)
+_SOA = ctypes.POINTER(_BamSoA)
+_TSOA = ctypes.POINTER(_TorchSoA)
+# name -> (restype, argtypes) of every entry point the port calls, in the
+# sources' order (bam_stream.cpp's last)
+_SIGNATURES = {
+    "seeksv_bam_free": (None, [_SOA]),
+    "seeksv_bam_decode": (_SOA, [_S, ctypes.c_int]),
+    "seeksv_bam_decode_flags": (_SOA, [_S, ctypes.c_int, _I32]),
+    "seeksv_bam_open": (_P, [_S, ctypes.c_int, _S]),
+    "seeksv_bam_next": (_SOA, [_P, _I64]),
+    "seeksv_bam_next2": (_SOA, [_P, _I64, _I32]),
+    "seeksv_bam_close": (None, [_P]),
+    "seeksv_pack_sim_records": (None, [_I64, _I32, _P32, _P32, _P32, _P32,
+                                       _PU16, _P32, _P64, _PU8, _PU8,
+                                       ctypes.c_int]),
+    "seeksv_bgzf_bound": (_I64, [_I64]),
+    "seeksv_bgzf_compress": (_I64, [_PU8, _I64, ctypes.c_int, _PU8, _I64,
+                                    ctypes.c_int]),
+    "seeksv_coverage_diff": (None, [_P64, _P64, _P32, _I64, _P32, _I64]),
+    "seeksv_clipmap_new": (_P, [ctypes.c_double]),
+    "seeksv_clipmap_free": (None, [_P]),
+    "seeksv_clipmap_insert_slab": (None, [_P, _PU8, _PU8, _P64, _PU32, _P64,
+                                          _I64, _P64, _P32, _P64, _P32, _P32,
+                                          _P32, _PU8]),
+    "seeksv_clipmap_flush": (None, [_P, _S, ctypes.POINTER(_PU8), _P64,
+                                    ctypes.POINTER(_PU8), _P64]),
+    "seeksv_blob_free": (None, [_PU8]),
+    "seeksv_prefix_sum_i32": (None, [_P32, _I64, _P32]),
+    "seeksv_prefix_excl_i64": (None, [_P32, _I64, _P64]),
+    "seeksv_discordant_base_ok": (None, [_P32, _P32, _P32, _PU8, _I64, _I32,
+                                         _I64, _I64, _I32, _PU8]),
+    "seeksv_depth_diff_soa": (None, [_P32, _P32, _P32, _P32, _PU32, _P64,
+                                     _I64, _I32, _P64, _I32, _P32, _P32]),
+    "seeksv_depth_segments_flat": (_I64, [_P32, _P32, _P32, _P32, _PU32,
+                                          _P64, _I64, _I32, _P64, _P32,
+                                          _I32, _P64, _P64]),
+    "seeksv_nm_from_runs": (None, [_P32, _P64, _P32, _P64, _I64, _P32, _PU8,
+                                   _P64, _P32]),
+    "seeksv_coverage_depth": (None, [_P64, _P64, _P32, _I64, _P32, _I64]),
+    "seeksv_sw_extend_batch": (None, [_P32, _P32, _P32, _P32, _P32, _I64,
+                                      _I64, _I64, _I32, _P32, _I32]),
+    "seeksv_sw_global": (_I64, [_P32, _I64, _P32, _I64, _P32, _P32, _PU8]),
+    "seeksv_seed_batch": (None, [_PU8, _I32, _PU32, _I64, _P64, _I32, _PU8,
+                                 _P64, _I64, _I32, _I32, _I32, _P64, _P32,
+                                 _P32, _P32, _P32, _I32]),
+    "seeksv_sw_global_batch": (None, [_P32, _P64, _P32, _P64, _I64, _P32,
+                                      _P32, _P64, _P32, _PU8, _I64, _I32]),
+    "seeksv_index_build": (_I64, [_PU8, _P64, _I32, _I32, _I32, _PU16, _PU32,
+                                  _P64, _I32]),
+    "seeksv_torch_bam_open": (_P, [_S, ctypes.c_int, _S]),
+    "seeksv_torch_bam_next": (_TSOA, [_P, _I64, _I32]),
+    "seeksv_torch_bam_release": (None, [_TSOA]),
+    "seeksv_torch_bam_counts": (None, [_P, _P64]),
+    "seeksv_torch_bam_close": (None, [_P]),
+}
+
+# why the library is absent, when it is (the build's or the load's error)
 LOAD_ERROR: Optional[str] = None
 
 
@@ -81,169 +149,31 @@ def _load() -> Optional[ctypes.CDLL]:
     _TRIED = True
     from .._build import build_native
     try:
-        cands = (build_native(),)
-    except (RuntimeError, OSError, subprocess.SubprocessError) as exc:
+        lib = ctypes.CDLL(build_native())
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+    except (RuntimeError, OSError, AttributeError,
+            subprocess.SubprocessError) as exc:
         LOAD_ERROR = str(exc)
-        cands = ()
-    for cand in cands:
-        if os.path.exists(cand):
-            try:
-                lib = ctypes.CDLL(cand)
-                lib.seeksv_bam_decode.restype = ctypes.POINTER(_BamSoA)
-                lib.seeksv_bam_decode.argtypes = [ctypes.c_char_p,
-                                                  ctypes.c_int]
-                if hasattr(lib, "seeksv_bam_decode_flags"):
-                    lib.seeksv_bam_decode_flags.restype = \
-                        ctypes.POINTER(_BamSoA)
-                    lib.seeksv_bam_decode_flags.argtypes = [
-                        ctypes.c_char_p, ctypes.c_int, ctypes.c_int32]
-                lib.seeksv_bam_free.argtypes = [ctypes.POINTER(_BamSoA)]
-                lib.seeksv_coverage_diff.argtypes = [
-                    ctypes.POINTER(ctypes.c_int64),
-                    ctypes.POINTER(ctypes.c_int64),
-                    ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-                    ctypes.POINTER(ctypes.c_int32), ctypes.c_int64]
-                if hasattr(lib, "seeksv_coverage_depth"):
-                    lib.seeksv_coverage_depth.argtypes = \
-                        lib.seeksv_coverage_diff.argtypes
-                if hasattr(lib, "seeksv_prefix_sum_i32"):
-                    p32 = ctypes.POINTER(ctypes.c_int32)
-                    p64 = ctypes.POINTER(ctypes.c_int64)
-                    lib.seeksv_prefix_sum_i32.argtypes = [
-                        p32, ctypes.c_int64, p32]
-                    lib.seeksv_prefix_excl_i64.argtypes = [
-                        p32, ctypes.c_int64, p64]
-                if hasattr(lib, "seeksv_discordant_base_ok"):
-                    p32 = ctypes.POINTER(ctypes.c_int32)
-                    pu8 = ctypes.POINTER(ctypes.c_uint8)
-                    lib.seeksv_discordant_base_ok.argtypes = [
-                        p32, p32, p32, pu8, ctypes.c_int64, ctypes.c_int32,
-                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, pu8]
-                if hasattr(lib, "seeksv_depth_diff_soa"):
-                    p32 = ctypes.POINTER(ctypes.c_int32)
-                    p64 = ctypes.POINTER(ctypes.c_int64)
-                    lib.seeksv_depth_diff_soa.argtypes = [
-                        p32, p32, p32, p32,
-                        ctypes.POINTER(ctypes.c_uint32), p64,
-                        ctypes.c_int64, ctypes.c_int32, p64,
-                        ctypes.c_int32, p32, p32]
-                if hasattr(lib, "seeksv_depth_segments_flat"):
-                    p32 = ctypes.POINTER(ctypes.c_int32)
-                    p64 = ctypes.POINTER(ctypes.c_int64)
-                    lib.seeksv_depth_segments_flat.restype = ctypes.c_int64
-                    lib.seeksv_depth_segments_flat.argtypes = [
-                        p32, p32, p32, p32,
-                        ctypes.POINTER(ctypes.c_uint32), p64,
-                        ctypes.c_int64, ctypes.c_int32, p64, p32,
-                        ctypes.c_int32, p64, p64]
-                if hasattr(lib, "seeksv_nm_from_runs"):
-                    p32 = ctypes.POINTER(ctypes.c_int32)
-                    p64 = ctypes.POINTER(ctypes.c_int64)
-                    lib.seeksv_nm_from_runs.argtypes = [
-                        p32, p64, p32, p64, ctypes.c_int64, p32,
-                        ctypes.POINTER(ctypes.c_uint8), p64, p32]
-                if hasattr(lib, "seeksv_bgzf_compress"):
-                    pu8 = ctypes.POINTER(ctypes.c_uint8)
-                    lib.seeksv_bgzf_bound.restype = ctypes.c_int64
-                    lib.seeksv_bgzf_bound.argtypes = [ctypes.c_int64]
-                    lib.seeksv_bgzf_compress.restype = ctypes.c_int64
-                    lib.seeksv_bgzf_compress.argtypes = [
-                        pu8, ctypes.c_int64, ctypes.c_int, pu8,
-                        ctypes.c_int64, ctypes.c_int]
-                if hasattr(lib, "seeksv_pack_sim_records"):
-                    pu8 = ctypes.POINTER(ctypes.c_uint8)
-                    p32 = ctypes.POINTER(ctypes.c_int32)
-                    lib.seeksv_pack_sim_records.argtypes = [
-                        ctypes.c_int64, ctypes.c_int32, p32, p32, p32, p32,
-                        ctypes.POINTER(ctypes.c_uint16), p32,
-                        ctypes.POINTER(ctypes.c_int64), pu8, pu8,
-                        ctypes.c_int]
-                if hasattr(lib, "seeksv_torch_bam_open"):
-                    lib.seeksv_torch_bam_open.restype = ctypes.c_void_p
-                    lib.seeksv_torch_bam_open.argtypes = [
-                        ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p]
-                    lib.seeksv_torch_bam_next.restype = \
-                        ctypes.POINTER(_TorchSoA)
-                    lib.seeksv_torch_bam_next.argtypes = [
-                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
-                    lib.seeksv_torch_bam_release.argtypes = [
-                        ctypes.POINTER(_TorchSoA)]
-                    lib.seeksv_torch_bam_counts.argtypes = [
-                        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
-                    lib.seeksv_torch_bam_close.argtypes = [ctypes.c_void_p]
-                if hasattr(lib, "seeksv_bam_open"):
-                    lib.seeksv_bam_open.restype = ctypes.c_void_p
-                    lib.seeksv_bam_open.argtypes = [
-                        ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p]
-                    lib.seeksv_bam_next.restype = ctypes.POINTER(_BamSoA)
-                    lib.seeksv_bam_next.argtypes = [ctypes.c_void_p,
-                                                    ctypes.c_int64]
-                    lib.seeksv_bam_close.argtypes = [ctypes.c_void_p]
-                if hasattr(lib, "seeksv_bam_next2"):
-                    lib.seeksv_bam_next2.restype = ctypes.POINTER(_BamSoA)
-                    lib.seeksv_bam_next2.argtypes = [
-                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
-                if hasattr(lib, "seeksv_sw_extend_batch"):
-                    p32 = ctypes.POINTER(ctypes.c_int32)
-                    lib.seeksv_sw_extend_batch.argtypes = [
-                        p32, p32, p32, p32, p32,
-                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                        ctypes.c_int32, p32, ctypes.c_int32]
-                    lib.seeksv_sw_global.restype = ctypes.c_int64
-                    lib.seeksv_sw_global.argtypes = [
-                        p32, ctypes.c_int64, p32, ctypes.c_int64,
-                        p32, p32, ctypes.POINTER(ctypes.c_uint8)]
-                if hasattr(lib, "seeksv_clipmap_new"):
-                    p32 = ctypes.POINTER(ctypes.c_int32)
-                    p64 = ctypes.POINTER(ctypes.c_int64)
-                    pu8 = ctypes.POINTER(ctypes.c_uint8)
-                    lib.seeksv_clipmap_new.restype = ctypes.c_void_p
-                    lib.seeksv_clipmap_new.argtypes = [ctypes.c_double]
-                    lib.seeksv_clipmap_free.argtypes = [ctypes.c_void_p]
-                    lib.seeksv_clipmap_insert_slab.argtypes = [
-                        ctypes.c_void_p, pu8, pu8, p64,
-                        ctypes.POINTER(ctypes.c_uint32), p64,
-                        ctypes.c_int64, p64, p32, p64, p32, p32, p32, pu8]
-                    lib.seeksv_clipmap_flush.argtypes = [
-                        ctypes.c_void_p, ctypes.c_char_p,
-                        ctypes.POINTER(pu8), p64, ctypes.POINTER(pu8), p64]
-                    lib.seeksv_blob_free.argtypes = [pu8]
-                if hasattr(lib, "seeksv_seed_batch"):
-                    p32 = ctypes.POINTER(ctypes.c_int32)
-                    p64 = ctypes.POINTER(ctypes.c_int64)
-                    lib.seeksv_seed_batch.argtypes = [
-                        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32,
-                        ctypes.POINTER(ctypes.c_uint32),
-                        ctypes.c_int64, p64, ctypes.c_int32,
-                        ctypes.POINTER(ctypes.c_uint8), p64,
-                        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                        ctypes.c_int32, p64, p32, p32, p32, p32,
-                        ctypes.c_int32]
-                if hasattr(lib, "seeksv_index_build"):
-                    p64 = ctypes.POINTER(ctypes.c_int64)
-                    lib.seeksv_index_build.restype = ctypes.c_int64
-                    lib.seeksv_index_build.argtypes = [
-                        ctypes.POINTER(ctypes.c_uint8), p64,
-                        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                        ctypes.POINTER(ctypes.c_uint16),
-                        ctypes.POINTER(ctypes.c_uint32), p64,
-                        ctypes.c_int32]
-                if hasattr(lib, "seeksv_sw_global_batch"):
-                    p32 = ctypes.POINTER(ctypes.c_int32)
-                    p64 = ctypes.POINTER(ctypes.c_int64)
-                    lib.seeksv_sw_global_batch.argtypes = [
-                        p32, p64, p32, p64, ctypes.c_int64, p32, p32, p64,
-                        p32, ctypes.POINTER(ctypes.c_uint8),
-                        ctypes.c_int64, ctypes.c_int32]
-                _LIB = lib
-                break
-            except OSError:
-                pass
+        return None
+    _LIB = lib
     return _LIB
 
 
 def available() -> bool:
+    """Whether the library loaded (it is built at the first call): the one
+    switch between the native and the python / numpy paths."""
     return _load() is not None
+
+
+def _lib() -> ctypes.CDLL:
+    """The loaded library; raises where ``available()`` says it is not."""
+    if not available():
+        raise RuntimeError("the native host library did not build or "
+                           f"load: {LOAD_ERROR}")
+    return _LIB
 
 
 def library_path() -> Optional[str]:
@@ -337,19 +267,12 @@ def read_bam_native(path: str, n_threads: int = 0, lazy: bool = False):
     records) decode — the whole-file form of the streaming reader's
     lazy mode, for consumers that only need the numeric columns +
     cigars (a 300M-record BAM is ~70 GB of bases otherwise)."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native library not built")
-    if lazy and hasattr(lib, "seeksv_bam_decode_flags"):
+    lib = _lib()
+    if lazy:
         h = lib.seeksv_bam_decode_flags(path.encode(), n_threads, 1)
     else:
         h = lib.seeksv_bam_decode(path.encode(), n_threads)
     return _soa_to_records(h, path, lib.seeksv_bam_free)
-
-
-def stream_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_torch_bam_open")
 
 
 def iter_bam_chunks_native(path: str, chunk_records: int,
@@ -375,11 +298,11 @@ def iter_bam_chunks_native(path: str, chunk_records: int,
     lazy_seq=True skips the seq/qual decode for records that are fully
     mapped with no soft-clipped end — valid only when the consumer reads
     bases exclusively from clipped/unmapped records (GetclipStream +
-    StreamStats do; the skipped rows are uninitialised)."""
+    StreamStats do; the skipped rows are uninitialised).  Raises where the
+    library is absent: io/bam.read_bam_chunks asks ``available()`` and
+    takes the python decoder, which gives the same slabs."""
     from ..utils import trace
-    lib = _load()
-    if lib is None or not hasattr(lib, "seeksv_torch_bam_open"):
-        raise RuntimeError("native stream reader not built")
+    lib = _lib()
     err = ctypes.create_string_buffer(256)
     s = lib.seeksv_torch_bam_open(path.encode(), n_threads, err)
     if not s:
@@ -403,17 +326,12 @@ def iter_bam_chunks_native(path: str, chunk_records: int,
         trace.count("scan.slabs_summarised", summarised)
 
 
-def pack_sim_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_pack_sim_records")
-
-
 def pack_sim_records(read_len: int, tid, pos, mtid, mpos, flag, isize, qk,
                      seq, n_threads: int = 0) -> np.ndarray:
     """Pack fixed-shape simulator records (full-length-M reads, fixed
     'sim_%010d' qnames) into BAM record bytes; mirrors the numpy assembly
     in utils/simulate._write_sorted (asserted by tests/test_simulation.py)."""
-    lib = _load()
+    lib = _lib()
     n = len(pos)
     QN = 15
     rec = 4 + 32 + QN + 4 + (read_len + 1) // 2 + read_len
@@ -439,15 +357,10 @@ def pack_sim_records(read_len: int, tid, pos, mtid, mpos, flag, isize, qk,
     return out
 
 
-def bgzf_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_bgzf_compress")
-
-
 def bgzf_compress(data, level: int = 1, n_threads: int = 0) -> bytes:
     """BGZF-frame and deflate `data` (threaded native path; the python
     writer falls back to zlib when the library is absent)."""
-    lib = _load()
+    lib = _lib()
     src = np.frombuffer(data, np.uint8)
     n = len(src)
     cap = int(lib.seeksv_bgzf_bound(n))
@@ -474,17 +387,12 @@ def rec_offsets(recs) -> Optional[np.ndarray]:
             int(s.body_off))
 
 
-def sw_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_sw_extend_batch")
-
-
 def sw_extend_batch_native(q: np.ndarray, qlen: np.ndarray, t: np.ndarray,
                            tlen: np.ndarray, h0: np.ndarray,
                            zdrop: int = 100, n_threads: int = 0):
     """Native batched anchored extension; exact extend_batch_np semantics
     (asserted by tests/test_native.py::test_sw_extend_native_vs_numpy)."""
-    lib = _load()
+    lib = _lib()
     q = np.ascontiguousarray(q, np.int32)
     t = np.ascontiguousarray(t, np.int32)
     qlen = np.ascontiguousarray(qlen, np.int32)
@@ -509,7 +417,7 @@ def sw_extend_batch_native(q: np.ndarray, qlen: np.ndarray, t: np.ndarray,
 def sw_global_native(query: np.ndarray, target: np.ndarray):
     """Native global affine alignment -> (score, [(len, op), ...]); exact
     sw.global_align semantics incl. traceback preference order."""
-    lib = _load()
+    lib = _lib()
     q = np.ascontiguousarray(query, np.int32)
     t = np.ascontiguousarray(target, np.int32)
     m, n = len(q), len(t)
@@ -532,7 +440,7 @@ class NativeClipMap:
     BreakpointMap, asserted by the golden/stream parity tests)."""
 
     def __init__(self, limit: float):
-        self._lib = _load()
+        self._lib = _lib()
         self._h = self._lib.seeksv_clipmap_new(ctypes.c_double(limit))
 
     def insert_slab(self, recs, rows) -> None:
@@ -589,22 +497,12 @@ class NativeClipMap:
             pass
 
 
-def clipmap_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_clipmap_new")
-
-
-def seed_batch_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_seed_batch")
-
-
 def seed_batch_native(idx, reads, max_occ: int, top: int,
                       n_threads: int = 0):
     """Native batched seeding over a KmerIndex; exact
     align.seed_batch.batch_candidates semantics (asserted by
     tests/test_native.py).  reads: list of uint8 code arrays."""
-    lib = _load()
+    lib = _lib()
     n = len(reads)
     read_off = np.zeros(n + 1, np.int64)
     for i, r in enumerate(reads):
@@ -651,11 +549,6 @@ def seed_batch_native(idx, reads, max_occ: int, top: int,
     return out
 
 
-def index_build_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_index_build")
-
-
 def index_build_native(ref_codes: np.ndarray, starts: np.ndarray, k: int,
                        bits: int, n_threads: int = 0):
     """Radix-bucketed v2 index build (csrc seeksv_index_build): returns
@@ -663,7 +556,7 @@ def index_build_native(ref_codes: np.ndarray, starts: np.ndarray, k: int,
     layout/order as the numpy build (equivalence asserted by
     tests/test_align.py).  Requires residual bits <= 16 (production
     prefix widths); callers fall back to numpy otherwise."""
-    lib = _load()
+    lib = _lib()
     ref_codes = np.ascontiguousarray(ref_codes, np.uint8)
     starts = np.ascontiguousarray(starts, np.int64)
     cap = int(np.maximum(np.diff(starts) - k + 1, 0).sum())
@@ -681,11 +574,6 @@ def index_build_native(ref_codes: np.ndarray, starts: np.ndarray, k: int,
     if n == cap:
         return keys, positions, ptab
     return keys[:n].copy(), positions[:n].copy(), ptab
-
-
-def sw_global_batch_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_sw_global_batch")
 
 
 def sw_global_batch_native(queries, targets, n_threads: int = 0):
@@ -712,7 +600,7 @@ def sw_global_batch_native(queries, targets, n_threads: int = 0):
     ncig = np.zeros(B, np.int64)
     cig_len = np.empty((B, cap), np.int32)
     cig_op = np.empty((B, cap), np.uint8)
-    lib = _load()
+    lib = _lib()
     p32 = ctypes.POINTER(ctypes.c_int32)
     p64 = ctypes.POINTER(ctypes.c_int64)
     pu8 = ctypes.POINTER(ctypes.c_uint8)
@@ -745,10 +633,10 @@ def coverage_depth(starts: np.ndarray, ends: np.ndarray,
                    weights: np.ndarray, L: int) -> np.ndarray:
     """depth[i] = sum of weights of segments covering position i, i<L —
     the fused native equivalent of np.cumsum(coverage_diff(...))[:L]."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "seeksv_coverage_depth"):
+    if not available():
         diff = coverage_diff(starts, ends, weights, L + 1)
         return np.cumsum(diff)[:L].astype(np.int32)
+    lib = _lib()
     depth = np.zeros(L + 1, np.int32)
     s = np.ascontiguousarray(starts, np.int64)
     e = np.ascontiguousarray(ends, np.int64)
@@ -763,9 +651,9 @@ def coverage_depth(starts: np.ndarray, ends: np.ndarray,
 
 def cumsum_i32(a: np.ndarray) -> np.ndarray:
     """Inclusive int32 prefix sum (native when built; np.cumsum fallback)."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "seeksv_prefix_sum_i32"):
+    if not available():
         return np.cumsum(a, dtype=np.int32)
+    lib = _lib()
     a = np.ascontiguousarray(a, np.int32)
     out = np.empty(len(a), np.int32)
     p32 = ctypes.POINTER(ctypes.c_int32)
@@ -777,9 +665,9 @@ def cumsum_i32(a: np.ndarray) -> np.ndarray:
 def prefix_excl_i64(a: np.ndarray) -> np.ndarray:
     """Exclusive int64 prefix sum of an int32 array: out[0]=0,
     out[i+1]=sum(a[:i+1]); len(out) == len(a)+1 (the range-sum table)."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "seeksv_prefix_excl_i64"):
+    if not available():
         return np.concatenate([[0], np.cumsum(a, dtype=np.int64)])
+    lib = _lib()
     a = np.ascontiguousarray(a, np.int32)
     out = np.empty(len(a) + 1, np.int64)
     lib.seeksv_prefix_excl_i64(
@@ -788,17 +676,12 @@ def prefix_excl_i64(a: np.ndarray) -> np.ndarray:
     return out
 
 
-def discordant_base_ok_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_discordant_base_ok")
-
-
 def discordant_base_ok(flag, mapq, isize, hard, min_mapq: int,
                        min_ins: int, max_ins: int,
                        skip_hard: bool) -> np.ndarray:
     """Fused base-eligibility mask for DiscordantCounter (one native
     pass; numpy mask chain is the oracle, tests/test_native.py)."""
-    lib = _load()
+    lib = _lib()
     n = len(flag)
     flag = np.ascontiguousarray(flag, np.int32)
     mapq = np.ascontiguousarray(mapq, np.int32)
@@ -815,17 +698,12 @@ def discordant_base_ok(flag, mapq, isize, hard, min_mapq: int,
     return out.view(bool)
 
 
-def depth_segments_flat_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_depth_segments_flat")
-
-
 def depth_segments_flat(recs, min_mapq: int, offsets: np.ndarray):
     """(flat_start, flat_end) per M/=/X segment of every gate-passing
     record, clipped to the owning chromosome — one native pass replacing
     the repeat+cumsum numpy expansion of depth_segments + flat mapping
     (parallel/spmd_pipeline.py _flat_segments)."""
-    lib = _load()
+    lib = _lib()
     p32 = ctypes.POINTER(ctypes.c_int32)
     p64 = ctypes.POINTER(ctypes.c_int64)
     flag = np.ascontiguousarray(recs.flag, np.int32)
@@ -850,16 +728,11 @@ def depth_segments_flat(recs, min_mapq: int, offsets: np.ndarray):
     return out_s[:k], out_e[:k]
 
 
-def nm_from_runs_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_nm_from_runs")
-
-
 def nm_from_runs(qs, ts, runs):
     """NM per job from cigar runs (mismatches on M + indel bases; the
     engine contract).  qs/ts: lists of code arrays; runs: list of
     [(len, 'M'|'I'|'D'), ...]."""
-    lib = _load()
+    lib = _lib()
     B = len(qs)
     q = np.concatenate([np.asarray(x, np.int32) for x in qs]) \
         if B else np.zeros(0, np.int32)
@@ -886,11 +759,6 @@ def nm_from_runs(qs, ts, runs):
     return nm
 
 
-def depth_diff_soa_available() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "seeksv_depth_diff_soa")
-
-
 def depth_diff_soa(recs, min_mapq: int, tid_base: np.ndarray,
                    diff: np.ndarray) -> None:
     """Accumulate the pileup-depth difference contributions of every
@@ -899,7 +767,7 @@ def depth_diff_soa(recs, min_mapq: int, tid_base: np.ndarray,
     Single native pass over the SoA columns — the streaming-stats
     replacement for depth_segments + coverage_diff
     (ref: bam2depth.cpp:75-129)."""
-    lib = _load()
+    lib = _lib()
     p32 = ctypes.POINTER(ctypes.c_int32)
     p64 = ctypes.POINTER(ctypes.c_int64)
     flag = np.ascontiguousarray(recs.flag, np.int32)
@@ -923,12 +791,12 @@ def depth_diff_soa(recs, min_mapq: int, tid_base: np.ndarray,
 def coverage_diff(starts: np.ndarray, ends: np.ndarray,
                   weights: np.ndarray, length: int) -> np.ndarray:
     """Native scatter-add into a difference array (fallback: np.add.at)."""
-    lib = _load()
     diff = np.zeros(length + 1, np.int32)
-    if lib is None:
+    if not available():
         np.add.at(diff, np.clip(starts, 0, length), weights)
         np.add.at(diff, np.clip(ends, 0, length), -weights)
         return diff
+    lib = _lib()
     s = np.ascontiguousarray(starts, np.int64)
     e = np.ascontiguousarray(ends, np.int64)
     w = np.ascontiguousarray(weights, np.int32)

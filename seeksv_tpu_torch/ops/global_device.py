@@ -494,9 +494,6 @@ class TorchDeviceGlobalAligner:
         a_q = [q[rr, :ms[rr]] for _oi, rr, _sc, _cg in accepted]
         a_t = [t[rr, :ns[rr]] for _oi, rr, _sc, _cg in accepted]
         a_runs = [cg for _oi, _rr, _sc, cg in accepted]
-        if not native.nm_from_runs_available():
-            raise RuntimeError("NM of the device walks needs the native host "
-                               f"library: {native.LOAD_ERROR}")
         nms = native.nm_from_runs(a_q, a_t, a_runs)
         for (oi, _rr, sc, cg), nmv in zip(accepted, nms):
             out[oi] = (sc, cg, int(nmv))

@@ -751,7 +751,7 @@ def _flat_segments(recs: BamRecords, min_mapq: int, offsets: np.ndarray,
     numpy form below is the oracle — identical output asserted by the
     SPMD-vs-sequential coverage parity tests)."""
     from ..io import native
-    if native.depth_segments_flat_available():
+    if native.available():
         return native.depth_segments_flat(recs, min_mapq, offsets)
     seg_start, seg_end, seg_tid = depth_segments(recs, min_mapq)
     # clip per-tid (a segment overhanging its chromosome end must not

@@ -217,7 +217,7 @@ class GetclipStream:
                              compresslevel=1)
         from ..io import native
         self._nmap = (native.NativeClipMap(threshold)
-                      if native.clipmap_available() else None)
+                      if native.available() else None)
         self.left_map = BreakpointMap()
         self.right_map = BreakpointMap()
         self.id2seq_qual: Dict[bytes, Tuple[Tuple[bytes, bytes], str]] = {}

@@ -491,7 +491,7 @@ class DiscordantCounter:
             hard = has_cigar & ((first_op == OP_H) | (last_op == OP_H))
             end = recs.pos + recs.ref_span(count_x=True)  # bam_calend
         from ..io import native
-        if native.discordant_base_ok_available():
+        if native.available():
             # fused single native pass (numpy chain below is the oracle)
             self.base_ok = native.discordant_base_ok(
                 recs.flag, recs.mapq, recs.isize,

@@ -129,7 +129,7 @@ def main(argv=None):
     ap.add_argument("--out", default=OUT)
     args = ap.parse_args(argv)
     info = card()
-    if not native.sw_available():
+    if not native.available():
         raise SystemExit(f"the native host library did not load: "
                          f"{native.LOAD_ERROR}")
     dev = torch.device("cuda", torch.cuda.current_device())

@@ -388,7 +388,7 @@ def _write_sorted(w, order, n_comp, records, qb, donor, rng, error_rate,
             flat = rng.integers(0, total, ne)
             seq.reshape(-1)[flat] = BASES[rng.integers(0, 4, ne)]
         from ..io import native
-        if native.pack_sim_available():
+        if native.available():
             return native.pack_sim_records(read_len, tid, pos, mtid, mpos,
                                            flag, isz, k, seq)
         out = np.empty((n, rec_size), np.uint8)

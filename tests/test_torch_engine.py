@@ -146,7 +146,7 @@ def test_cuda_finalize_without_native_library_raises(genome_fa, monkeypatch):
     from seeksv_tpu_torch.io import native
     fa, _ = genome_fa
     idx = TorchBatchAligner.from_fasta(fa, cache=False, device="cpu").idx
-    monkeypatch.setattr(native, "sw_global_batch_available", lambda: False)
+    monkeypatch.setattr(native, "available", lambda: False)
     codes = np.array([0, 1, 2, 3], np.uint8)
     args = ([(codes, 3 - codes[::-1])], [b"ACGT"], {0: []})
     with pytest.raises(RuntimeError, match="native host library"):

@@ -144,6 +144,30 @@ def test_native_against_python_decoders(world):
                                   want.seq)
 
 
+@pytest.mark.parametrize("fault", ["missing symbol", "failed build"])
+def test_native_library_loads_whole_or_not_at_all(monkeypatch, fault):
+    """An entry point the library lacks, or a build that fails, leaves the
+    whole library absent, with LOAD_ERROR naming the cause."""
+    import seeksv_tpu_torch._build as p_build
+    monkeypatch.setattr(p_native, "_LIB", None)
+    monkeypatch.setattr(p_native, "_TRIED", False)
+    monkeypatch.setattr(p_native, "LOAD_ERROR", None)
+    if fault == "missing symbol":
+        want = "seeksv_no_such_entry"
+        monkeypatch.setitem(p_native._SIGNATURES, want, (None, []))
+    else:
+        want = "native build failed"
+
+        def fail():
+            raise RuntimeError(f"{want} (exit 1)")
+        monkeypatch.setattr(p_build, "build_native", fail)
+    assert not p_native.available()
+    assert p_native.library_path() is None
+    assert want in p_native.LOAD_ERROR
+    with pytest.raises(RuntimeError, match=want):
+        p_native.read_bam_native("absent.bam")
+
+
 def test_kmer_index_and_batch_candidates(world):
     _root, paths, _normal = world
     r_idx = r_index.KmerIndex.build(r_fasta.read_fasta(paths["ref_fa"]), k=19)
@@ -237,9 +261,36 @@ def test_somatic_and_filter(world, tmp_path):
     _same_file(tmp_path / "p.somatic.sv", root / "jax.somatic.sv")
 
 
+# each step of the streamed scan as (its python / numpy form, its native
+# form): the decode, the breakpoint map, the coverage
+SCAN_PATHS = {
+    "decode": ((p_bam, "iter_bam_chunks_python"),
+               (p_native, "iter_bam_chunks_native")),
+    "breakpoints": ((p_getclip.BreakpointMap, "insert"),
+                    (p_native.NativeClipMap, "insert_slab")),
+    "coverage": ((p_stream, "depth_segments"), (p_native, "depth_diff_soa")),
+}
+
+
+@pytest.mark.parametrize("library", ["present", "absent"])
 @pytest.mark.parametrize("chunk", [977, 50_000])
-def test_scan_bam_getclip_stream_and_stats(world, tmp_path, chunk):
+def test_scan_bam_getclip_stream_and_stats(world, tmp_path, monkeypatch,
+                                           chunk, library):
+    """The port's scan against the JAX package's, with the port's native
+    library and without it (``native.available`` false: the python
+    decoder, the python BreakpointMap, the numpy coverage); a spy on each
+    form shows which one ran."""
     root, paths, _normal = world
+    if library == "absent":
+        monkeypatch.setattr(p_native, "available", lambda: False)
+    calls = {}
+    for step, forms in SCAN_PATHS.items():
+        for is_native, (owner, name) in enumerate(forms):
+            def spy(*a, _key=(step, is_native), _fn=getattr(owner, name),
+                    **k):
+                calls[_key] = calls.get(_key, 0) + 1
+                return _fn(*a, **k)
+            monkeypatch.setattr(owner, name, spy)
     out = {}
     for tag, stream, getclip in (("r", r_stream, r_getclip),
                                  ("p", p_stream, p_getclip)):
@@ -248,6 +299,10 @@ def test_scan_bam_getclip_stream_and_stats(world, tmp_path, chunk):
         stream.scan_bam(paths["bam"], chunk, [gs, stats])
         gs.close()
         out[tag] = stats
+    ran = 1 if library == "present" else 0
+    for step in SCAN_PATHS:
+        assert calls.get((step, ran), 0) > 0, step
+        assert calls.get((step, 1 - ran), 0) == 0, step
     for suffix in ("clip.gz", "clip.fq.gz"):
         _same_file(tmp_path / f"p.{suffix}", tmp_path / f"r.{suffix}", gz=True)
         _same_file(tmp_path / f"p.{suffix}", root / f"jax.{suffix}", gz=True)

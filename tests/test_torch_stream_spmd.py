@@ -90,7 +90,7 @@ def test_stream_stats_match_host(dataset, mesh1, read_pair_used, chunk):
     _root, p = dataset
     host = StreamStats(20, read_pair_used)
     dev = SpmdStreamStats(mesh1, 20, read_pair_used)
-    scan_bam(p["bam"], chunk, [host, dev], prefetch=False)
+    scan_bam(p["bam"], chunk, [host, dev])
     assert host.insert_size() == dev.insert_size()
     hc, dcov = host.coverage(), dev.coverage()
     assert set(hc) == set(dcov)

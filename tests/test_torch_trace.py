@@ -453,7 +453,7 @@ def test_cigar_summary_counter_and_its_reader(data, tmp_path, monkeypatch):
     assert counts["scan.slabs_summarised"] == counts["scan.slabs"] == 3
     assert pct == 100.0
     with monkeypatch.context() as m:
-        m.setattr(native, "stream_available", lambda: False)
+        m.setattr(native, "available", lambda: False)
         counts, pct = traced_scan("python")
     assert "scan.slabs_summarised" not in counts
     assert "scan.slabs" not in counts and pct is None
