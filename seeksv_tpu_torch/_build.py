@@ -32,11 +32,13 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v"]
 LIB_NAME = "libseeksv_tpu_torch_kernels.so"
-# the native host library: the repo's C++ source (read only) and the
-# port's streamed BAM decoder, flags as csrc/Makefile
+# the native host library: the repo's C++ source (read only), the port's
+# streamed BAM decoder and getclip's unmapped-mate pairer, flags as
+# csrc/Makefile
 NATIVE_SRCS = (
     os.path.join(os.path.dirname(_PKG), "csrc", "seeksv_native.cpp"),
-    os.path.join(CSRC, "bam_stream.cpp"))
+    os.path.join(CSRC, "bam_stream.cpp"),
+    os.path.join(CSRC, "getclip_unmapped.cpp"))
 NATIVE_CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall"]
 NATIVE_LIB_NAME = "libseeksv_native.so"
 
@@ -185,11 +187,11 @@ def _cpu_identity() -> str:
 def build_native() -> str:
     """Build the native host library (BAM decode, host extension and
     finalize ladder, seeding, index build) from the repo's C++ source
-    ``csrc/seeksv_native.cpp`` and the port's streamed BAM decoder
-    ``seeksv_tpu_torch/csrc/bam_stream.cpp`` with one ``g++`` call, flags
-    as ``csrc/Makefile`` has them, into
-    ``build/seeksv_tpu_torch/native/<hash>/`` (the hash covers both
-    sources), and return the library's path.  Nothing is written beside
+    ``csrc/seeksv_native.cpp`` and the port's own sources in
+    ``NATIVE_SRCS`` (the streamed BAM decoder, getclip's unmapped-mate
+    pairer) with one ``g++`` call, flags as ``csrc/Makefile`` has them,
+    into ``build/seeksv_tpu_torch/native/<hash>/`` (the hash covers every
+    source), and return the library's path.  Nothing is written beside
     the sources.
 
     ``-DUSE_LIBDEFLATE -ldeflate`` is added only where the preprocessor

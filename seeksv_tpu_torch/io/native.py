@@ -1,8 +1,9 @@
 """ctypes bindings for the native host runtime (csrc/seeksv_native.cpp,
-and the port's streamed BAM decoder seeksv_tpu_torch/csrc/bam_stream.cpp).
+the port's streamed BAM decoder seeksv_tpu_torch/csrc/bam_stream.cpp and
+getclip's unmapped-mate pairer seeksv_tpu_torch/csrc/getclip_unmapped.cpp).
 
 Counterpart of seeksv_tpu/io/native.py.  One library, loaded whole or not
-at all: ``_build.build_native`` builds both sources into
+at all: ``_build.build_native`` builds the sources into
 ``build/seeksv_tpu_torch/native/<hash>/`` at first use, and every entry
 point in ``_SIGNATURES`` is bound from there; a failed build or a missing
 symbol leaves the library absent, with ``LOAD_ERROR`` naming the cause.
@@ -85,7 +86,7 @@ _PU32 = ctypes.POINTER(ctypes.c_uint32)
 _SOA = ctypes.POINTER(_BamSoA)
 _TSOA = ctypes.POINTER(_TorchSoA)
 # name -> (restype, argtypes) of every entry point the port calls, in the
-# sources' order (bam_stream.cpp's last)
+# sources' order (_build.NATIVE_SRCS)
 _SIGNATURES = {
     "seeksv_bam_free": (None, [_SOA]),
     "seeksv_bam_decode": (_SOA, [_S, ctypes.c_int]),
@@ -136,6 +137,11 @@ _SIGNATURES = {
     "seeksv_torch_bam_release": (None, [_TSOA]),
     "seeksv_torch_bam_counts": (None, [_P, _P64]),
     "seeksv_torch_bam_close": (None, [_P]),
+    "seeksv_torch_unmapped_new": (_P, []),
+    "seeksv_torch_unmapped_free": (None, [_P]),
+    "seeksv_torch_unmapped_pair": (_I64, [_P, _P32, _PU8, _PU8, _P64, _PU8,
+                                          _P64, _P64, _I64, ctypes.POINTER(_P),
+                                          _P64, ctypes.POINTER(_P), _P64]),
 }
 
 # why the library is absent, when it is (the build's or the load's error)
@@ -495,6 +501,71 @@ class NativeClipMap:
             self._lib.seeksv_clipmap_free(self._h)
         except Exception:
             pass
+
+
+class UnmappedPairer:
+    """Handle to getclip's native unmapped-mate pairer
+    (csrc/getclip_unmapped.cpp): StoreUnmapSeqAndQual over a slab's
+    records at a time, the same text as pipeline.getclip._store_unmapped
+    record by record (tests/test_torch_unmapped_pairs.py).  The mates
+    still unpaired carry from call to call; ``close`` drops them."""
+
+    def __init__(self):
+        self._lib = _lib()
+        self._h = self._lib.seeksv_torch_unmapped_new()
+
+    def pair(self, recs, idx: np.ndarray):
+        """Pairs the records ``idx`` (int64, in stream order) of the slab
+        ``recs``.  Returns (un1 text, un2 text, pairs): the FASTQ of the
+        pairs completed, in that order, as buffers that stay valid until
+        the next call."""
+        from .bam import LazyQnames
+        if len(idx) == 0:
+            return b"", b"", 0
+        q = recs.qnames
+        if isinstance(q, LazyQnames):
+            blob, qoff = q.blob, q.off
+        else:
+            blob = b"".join(q)
+            qoff = np.zeros(len(q) + 1, np.int64)
+            np.cumsum(np.fromiter(map(len, q), np.int64, len(q)),
+                      out=qoff[1:])
+        if isinstance(blob, (bytes, bytearray)):
+            blob = np.frombuffer(blob, np.uint8)
+        blob = np.ascontiguousarray(blob, np.uint8)
+        qoff = np.ascontiguousarray(qoff, np.int64)
+        flag = np.ascontiguousarray(recs.flag, np.int32)
+        seq = np.ascontiguousarray(recs.seq, np.uint8)
+        qual = np.ascontiguousarray(recs.qual, np.uint8)
+        seq_off = np.ascontiguousarray(recs.seq_off, np.int64)
+        idx = np.ascontiguousarray(idx, np.int64)
+        p1, p2 = _P(), _P()
+        n1, n2 = _I64(0), _I64(0)
+        pairs = self._lib.seeksv_torch_unmapped_pair(
+            self._h, flag.ctypes.data_as(_P32), seq.ctypes.data_as(_PU8),
+            qual.ctypes.data_as(_PU8), seq_off.ctypes.data_as(_P64),
+            blob.ctypes.data_as(_PU8), qoff.ctypes.data_as(_P64),
+            idx.ctypes.data_as(_P64), len(idx), ctypes.byref(p1),
+            ctypes.byref(n1), ctypes.byref(p2), ctypes.byref(n2))
+        return _text(p1, n1.value), _text(p2, n2.value), int(pairs)
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.seeksv_torch_unmapped_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def _text(ptr, n: int):
+    """n bytes at ptr as a buffer over the native memory (no copy)."""
+    if n == 0:
+        return b""
+    return (ctypes.c_char * n).from_address(ptr.value)
 
 
 def seed_batch_native(idx, reads, max_occ: int, top: int,

@@ -216,8 +216,9 @@ class GetclipStream:
         self.un2 = gzip.open(f"{prefix}.unmapped_2.fq.gz", "wb",
                              compresslevel=1)
         from ..io import native
-        self._nmap = (native.NativeClipMap(threshold)
-                      if native.available() else None)
+        native_ok = native.available()
+        self._nmap = native.NativeClipMap(threshold) if native_ok else None
+        self._pairer = native.UnmappedPairer() if native_ok else None
         self.left_map = BreakpointMap()
         self.right_map = BreakpointMap()
         self.id2seq_qual: Dict[bytes, Tuple[Tuple[bytes, bytes], str]] = {}
@@ -309,12 +310,8 @@ class GetclipStream:
         #     mapped record of the new run (the reference's else-branch
         #     quirk, clip_reads.h:423-438) — except a leading tid-0 run
         #     (last_tid starts at 0).
-        for i in np.nonzero(unmapped_any)[0]:
-            if self.own_range is not None and not self._owned(
-                    int(recs.tid[i]), int(recs.pos[i])):
-                continue
-            _store_unmapped(recs, int(i), self.id2seq_qual, self.un1,
-                            self.un2)
+        with trace.span("seeksv.scan.unmapped"):
+            self._pair_unmapped(recs, np.nonzero(unmapped_any)[0])
 
         mapped_idx = np.nonzero(mapped)[0]
         if len(mapped_idx):
@@ -359,9 +356,38 @@ class GetclipStream:
                 return lo, hi
         return 0, -1
 
-    def _owned(self, tid: int, pos: int) -> bool:
-        lo, hi = self._tid_interval(tid)
-        return lo <= pos < hi
+    def _pair_unmapped(self, recs, idx: np.ndarray) -> None:
+        """Pair the slab's unmapped / mate-unmapped records ``idx`` (those
+        at owned positions under own_range) into unmapped_{1,2}.fq.gz:
+        the native pairer and one write a file a slab, else
+        _store_unmapped record by record.  Counts ``getclip.
+        unmapped_records`` (records paired) and ``getclip.unmapped_pairs``
+        (pairs written)."""
+        if self.own_range is not None and len(idx):
+            idx = idx[self._owned(recs.tid[idx], recs.pos[idx])]
+        if self._pairer is not None:
+            un1, un2, pairs = self._pairer.pair(recs, idx)
+            if pairs:
+                self.un1.write(un1)
+                self.un2.write(un2)
+        else:
+            pairs = 0
+            for i in idx:
+                pairs += _store_unmapped(recs, int(i), self.id2seq_qual,
+                                         self.un1, self.un2)
+        trace.count("getclip.unmapped_records", len(idx))
+        trace.count("getclip.unmapped_pairs", pairs)
+
+    def _owned(self, tid: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """Whether each (tid, pos) lies in its tid's owned interval (the
+        first own_range triple of the tid, as _tid_interval)."""
+        lo = np.zeros(len(tid), np.int64)
+        hi = np.full(len(tid), -1, np.int64)
+        for t, a, b in reversed(self.own_range):
+            m = tid == t
+            lo[m] = a
+            hi[m] = b
+        return (lo <= pos) & (pos < hi)
 
     def _filter_rows_owned(self, rows, tid):
         lo, hi = self._tid_interval(tid)
@@ -375,6 +401,8 @@ class GetclipStream:
             self.fq_out.close()
             self.un1.close()
             self.un2.close()
+            if self._pairer is not None:
+                self._pairer.close()
 
 
 def getclip(bam_path: str, prefix: str, threshold: float = 0.85,
@@ -401,9 +429,10 @@ def _map_len_no_x(recs: BamRecords) -> np.ndarray:
     return recs.ref_span(count_x=False)
 
 
-def _store_unmapped(recs, i, id2seq_qual, un1, un2):
+def _store_unmapped(recs, i, id2seq_qual, un1, un2) -> bool:
     """StoreUnmapSeqAndQual (ref: clip_reads.h:172-219): pair mates of
-    fully/half-unmapped reads into unmapped_{1,2}.fq.gz."""
+    fully/half-unmapped reads into unmapped_{1,2}.fq.gz.  Returns whether
+    record i completed a pair."""
     qname = recs.qnames[i]
     seq = recs.seq_bytes(i).decode()
     qual = recs.qual_str(i).decode()
@@ -416,14 +445,17 @@ def _store_unmapped(recs, i, id2seq_qual, un1, un2):
                 un1.write(f"@{name}/1\n{seq}\n+\n{qual}\n".encode())
                 un2.write(f"@{name}/2\n{oseq}\n+\n{oqual}\n".encode())
                 del id2seq_qual[qname]
+                return True
         else:
             if end == "1":
                 un1.write(f"@{name}/1\n{oseq}\n+\n{oqual}\n".encode())
                 un2.write(f"@{name}/2\n{seq}\n+\n{qual}\n".encode())
                 del id2seq_qual[qname]
+                return True
     else:
         end = "1" if recs.flag[i] & FREAD1 else "2"
         id2seq_qual[qname] = ((seq, qual), end)
+    return False
 
 
 def _get_sclip_read(recs, i, left_map, right_map, limit, save_low_quality,

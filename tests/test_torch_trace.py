@@ -31,8 +31,11 @@ STAGES = ["native", "scan_bam", "index", "realign", "getsv", "total"]
 # the streamed decoder's counters (io/native.iter_bam_chunks_native)
 SCAN_COUNTS = ("scan.slabs", "scan.slabs_recycled", "scan.slabs_summarised",
                "scan.windows", "scan.windows_ready")
+# getclip's unmapped mates (pipeline/getclip.py)
+UNMAPPED_COUNTS = ("getclip.unmapped_records", "getclip.unmapped_pairs")
 # a whole pass adds getsv's discordant windows (pipeline/getsv.py)
-PASS_COUNTS = ("scan.bam_bytes", *SCAN_COUNTS, "getsv.window_records")
+PASS_COUNTS = ("scan.bam_bytes", *SCAN_COUNTS, *UNMAPPED_COUNTS,
+               "getsv.window_records")
 BENCH = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmark")
 
@@ -263,8 +266,8 @@ def test_stages_are_their_spans(data, tmp_path):
     inner = [e for e in _annotations(doc, "seeksv.scan.")
              if scan["ts"] <= e["ts"] <= scan["ts"] + scan["dur"]]
     assert {e["name"] for e in inner} == {
-        "seeksv.scan.wait", "seeksv.scan.getclip", "seeksv.scan.stats",
-        "seeksv.scan.release", "seeksv.scan.flush"}
+        "seeksv.scan.wait", "seeksv.scan.getclip", "seeksv.scan.unmapped",
+        "seeksv.scan.stats", "seeksv.scan.release", "seeksv.scan.flush"}
     (meta,) = _records(doc)
     decode = [s for s in meta["spans"] if s["name"] == "seeksv.scan.decode"]
     # three slabs, and the read that finds the end
@@ -377,9 +380,10 @@ def _reader(name):
 
 def test_scan_counters_and_their_readers(data, tmp_path, monkeypatch):
     """Under a profiler, scan_bam records the streamed decoder's four
-    counters, and the benchmark's two readers of them return shares
-    between 0 and 100; with no profiler nothing is recorded, and a trace
-    without the counters gives the readers nothing to read."""
+    counters and getclip's two, and the benchmark's two readers of the
+    decoder's return shares between 0 and 100 (``scan_unmapped_s`` a part
+    of ``scan_getclip_s``); with no profiler nothing is recorded, and a
+    trace without the counters gives the readers nothing to read."""
     from seeksv_tpu_torch.pipeline.getclip import GetclipStream
     from seeksv_tpu_torch.pipeline.stream import StreamStats, scan_bam
     monkeypatch.syspath_prepend(BENCH)
@@ -399,8 +403,10 @@ def test_scan_counters_and_their_readers(data, tmp_path, monkeypatch):
                 with trace.span("seeksv.stage.scan_bam"):
                     one_scan(tmp_path / "on")
     counts = trace.last().counts
-    assert set(counts) == {"scan.bam_bytes", *SCAN_COUNTS}
+    assert set(counts) == {"scan.bam_bytes", *SCAN_COUNTS, *UNMAPPED_COUNTS}
     assert counts["scan.slabs"] == 3
+    assert counts["getclip.unmapped_records"] >= \
+        2 * counts["getclip.unmapped_pairs"]
     assert 0 <= counts["scan.slabs_recycled"] <= counts["scan.slabs"]
     assert 1 <= counts["scan.windows"]
     assert 0 <= counts["scan.windows_ready"] <= counts["scan.windows"]
@@ -413,6 +419,8 @@ def test_scan_counters_and_their_readers(data, tmp_path, monkeypatch):
         v = _reader(name)(ctx)
         assert 0 <= v <= 100
         assert v == pytest.approx(100 * counts[part] / counts[whole])
+    assert 0 <= _reader("scan_unmapped_s")(ctx) <= \
+        _reader("scan_getclip_s")(ctx)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with torch.profiler.record_function("bench.pass"):
             with torch.profiler.record_function("seeksv.stage.scan_bam"):
@@ -421,6 +429,7 @@ def test_scan_counters_and_their_readers(data, tmp_path, monkeypatch):
     ctx = {"trace_path": str(tmp_path / "bare.json")}
     assert _reader("scan_slab_reuse_pct")(ctx) is None
     assert _reader("scan_inflate_ready_pct")(ctx) is None
+    assert _reader("scan_unmapped_s")(ctx) is None
 
 
 def test_cigar_summary_counter_and_its_reader(data, tmp_path, monkeypatch):
